@@ -35,10 +35,10 @@ def main():
     print(f"platform: {jax.devices()[0].platform}\n")
 
     # --- fixed income -------------------------------------------------------
-    from montecarlo_tpu.engine import (bond_option_mc, cir_zcb,
+    from montecarlo.engine import (bond_option_mc, cir_zcb,
                                        vasicek_bond_option, vasicek_zcb,
                                        zcb_price_mc)
-    from montecarlo_tpu.processes import CIR, Vasicek
+    from montecarlo.processes import CIR, Vasicek
 
     vas = Vasicek.create(0.03, 0.8, 0.05, 0.015, 2.0 / 128)
     zcb = zcb_price_mc(vas, 2.0, 128, 1 << 15, seed=3)
@@ -55,7 +55,7 @@ def main():
     print(f"1y option on 3y bond  MC {float(opt['price']):.6f}  Jamshidian "
           f"{vasicek_bond_option(0.03, .8, .05, .015, 1., 3., k_atm):.6f}")
 
-    from montecarlo_tpu.engine import bermudan_swaption_lsm
+    from montecarlo.engine import bermudan_swaption_lsm
     berm = bermudan_swaption_lsm(
         Vasicek.create(0.03, 0.5, 0.04, 0.012, 0.25 / 16, dtype=jnp.float64),
         0.036, n_paths=1 << 14, steps_per_period=16, n_periods=8,
@@ -66,9 +66,9 @@ def main():
     # --- multilevel Monte Carlo --------------------------------------------
     import math
 
-    from montecarlo_tpu.engine import european_call
-    from montecarlo_tpu.engine.mlmc import mlmc_estimate
-    from montecarlo_tpu.processes import EulerGBM
+    from montecarlo.engine import european_call
+    from montecarlo.engine.mlmc import mlmc_estimate
+    from montecarlo.processes import EulerGBM
 
     res = mlmc_estimate(
         lambda n: EulerGBM.create(100., 0.05, 0.2, 1.0 / n),
@@ -80,9 +80,9 @@ def main():
           f"cheaper than single-level)")
 
     # --- jumps vs characteristic functions ----------------------------------
-    from montecarlo_tpu.engine import mc_estimate, simulate
-    from montecarlo_tpu.engine.cf_pricing import cf_call_price, kou_log_cf
-    from montecarlo_tpu.processes import Kou
+    from montecarlo.engine import mc_estimate, simulate
+    from montecarlo.engine.cf_pricing import cf_call_price, kou_log_cf
+    from montecarlo.processes import Kou
 
     kou = Kou.create(100., 0.03, 0.2, 1.0, 0.4, 10., 5., 1 / 252)
     s_t = simulate(kou, 1 << 16, 252, seed=7)
@@ -92,7 +92,7 @@ def main():
     print(f"Kou call:  MC {float(est['price']):.4f} vs CF {cf:.4f}")
 
     # --- SABR smile calibration ----------------------------------------------
-    from montecarlo_tpu.processes import calibrate_sabr, sabr_hagan_iv
+    from montecarlo.processes import calibrate_sabr, sabr_hagan_iv
 
     ks = np.linspace(80., 125., 10)
     market = np.asarray(sabr_hagan_iv(100., jnp.asarray(ks), 1.0,
@@ -102,7 +102,7 @@ def main():
           f"(rmse {fit['rmse_vol']:.1e} vols)")
 
     # --- rough Bergomi --------------------------------------------------------
-    from montecarlo_tpu.processes import RoughBergomi, rbergomi_simulate
+    from montecarlo.processes import RoughBergomi, rbergomi_simulate
 
     rb = RoughBergomi.create(s0=100., xi0=0.04, eta=1.5, rho=-0.7, h=0.1,
                              n_steps=64, T=0.5)
@@ -112,9 +112,9 @@ def main():
           f"± {float(est_rb['std_err']):.4f}")
 
     # --- variance swap + counterparty exposure -------------------------------
-    from montecarlo_tpu.engine import (exposure_profile, swap_value_fn,
+    from montecarlo.engine import (exposure_profile, swap_value_fn,
                                        variance_swap_strike_mc)
-    from montecarlo_tpu.processes import Heston
+    from montecarlo.processes import Heston
 
     hest = Heston.create(s0=100., v0=0.09, mu=0., kappa=2., theta=0.04,
                          xi=0.3, rho=-0.5, dt=1 / 256)
@@ -132,9 +132,9 @@ def main():
           f"FVA {float(prof['fva']):.2e} MVA {float(prof['mva']):.2e}")
 
     # --- continuous barrier via Brownian bridge ------------------------------
-    from montecarlo_tpu.engine import (barrier_survival_up, mc_estimate,
+    from montecarlo.engine import (barrier_survival_up, mc_estimate,
                                        simulate_functionals)
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.processes import GBM
 
     gbm = GBM.create(100., 0.03, 0.2, 1.0 / 64)
     out = simulate_functionals(
@@ -149,7 +149,7 @@ def main():
           f"{float(ki['price']):.4f}")
 
     # --- second-order Greeks (one forward-over-reverse pass) -----------------
-    from montecarlo_tpu.engine.greeks import (second_order_greeks,
+    from montecarlo.engine.greeks import (second_order_greeks,
                                               smoothed_call)
 
     p, g, h = second_order_greeks(gbm, smoothed_call(105., 1.5), 1 << 16,
@@ -160,7 +160,7 @@ def main():
           f"volga {float(h[1, 1]):.2f}")
 
     # --- stress report (common random numbers) -------------------------------
-    from montecarlo_tpu.api.stress import stress_report
+    from montecarlo.api.stress import stress_report
 
     rep = stress_report(gbm, lambda s: jnp.maximum(s - 105., 0.0),
                         1 << 15, 64, seed=3, discount=math.exp(-0.03))
@@ -169,7 +169,7 @@ def main():
           f"+100%) P&L {crash['pnl']:+.3f}")
 
     # --- device-Sobol QMC with honest replicated error bars ------------------
-    from montecarlo_tpu.engine import rqmc_estimate
+    from montecarlo.engine import rqmc_estimate
 
     qmc = rqmc_estimate(gbm, lambda s: european_call(s, 105.), 1 << 16, 64,
                         seed=5, n_replicates=8, discount=math.exp(-0.03))
@@ -178,9 +178,9 @@ def main():
           f"(honest replicated bar; the iid formula would read ~30x wider)")
 
     # --- multi-asset Bermudan max-call (Andersen-Broadie 2004) ---------------
-    from montecarlo_tpu.engine import (andersen_broadie_bound_multi,
+    from montecarlo.engine import (andersen_broadie_bound_multi,
                                        lsm_policy_multi, max_call)
-    from montecarlo_tpu.processes import MultiGBM
+    from montecarlo.processes import MultiGBM
 
     m2 = MultiGBM.create(s0=[100.] * 2, mu=[0.05 - 0.10] * 2,
                          sigma=[0.2] * 2, corr=np.eye(2), dt=1.0 / 3.0)
@@ -195,7 +195,7 @@ def main():
           f"{float(ub['upper']):.3f}] (published 13.902)")
 
     # --- American Greeks by policy freezing ----------------------------------
-    from montecarlo_tpu.engine import (american_price_and_greeks,
+    from montecarlo.engine import (american_price_and_greeks,
                                        lsm_exercise_policy)
 
     gbm_am = GBM.create(36., 0.06, 0.2, 1.0 / 50)
@@ -209,7 +209,7 @@ def main():
           f"vega {float(gr.sigma):.2f} (policy-frozen pathwise)")
 
     # --- worst-of autocallable -----------------------------------------------
-    from montecarlo_tpu.engine import (simulate_functionals,
+    from montecarlo.engine import (simulate_functionals,
                                        worst_of_autocallable)
 
     corr = np.full((3, 3), 0.6)

@@ -5,7 +5,7 @@ Covers: option pricing with variance reduction, pathwise Greeks, exotics,
 American exercise, the quant pipeline (features -> CV model -> Monte Carlo
 -> backtest), sharded estimation, and streaming VaR with checkpointing.
 
-Runs anywhere (CPU or TPU); pass --cpu to force the host backend.
+Runs anywhere (CPU or GPU); pass --cpu to force the host backend.
 """
 
 import os
@@ -26,11 +26,11 @@ if "--cpu" in sys.argv:
 def main():
     import jax.numpy as jnp
 
-    from montecarlo_tpu import GBM, Heston, make_mesh
-    from montecarlo_tpu.api import analyze_ticker, garch_monte_carlo, portfolio_var
-    from montecarlo_tpu.config import ModelConfig
-    from montecarlo_tpu.data import get_stock_data
-    from montecarlo_tpu.engine import (
+    from montecarlo import GBM, Heston, make_mesh
+    from montecarlo.api import analyze_ticker, garch_monte_carlo, portfolio_var
+    from montecarlo.config import ModelConfig
+    from montecarlo.data import get_stock_data
+    from montecarlo.engine import (
         ARITH_MEAN,
         asian_call,
         black_scholes_call,
@@ -42,7 +42,7 @@ def main():
         simulate,
         simulate_functionals,
     )
-    from montecarlo_tpu.samplers import AntitheticSampler
+    from montecarlo.samplers import AntitheticSampler
 
     print("== 1. European call: MC vs Black-Scholes ==")
     proc = GBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=1 / 252)

@@ -1,0 +1,6 @@
+"""`python -m montecarlo.cli` -> the CLI."""
+
+from montecarlo.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,14 +1,12 @@
 #!/usr/bin/env bash
-# Full test suite in CHUNKED pytest processes.
+# Full test suite on the CPU, in CHUNKED pytest processes.
 #
-# Why not one `pytest tests/`: this pool's XLA:CPU native stack segfaults
-# sporadically deep into a long-lived process — four full-suite runs died
-# at 75-95% in four DIFFERENT tests, in compile (`backend_compile_and_load`)
-# as well as executable-(de)serialization frames, including runs with the
-# persistent cache fully disabled and zero concurrent load.  Fresh
-# processes per chunk stay below the failure horizon; each chunk is an
-# independent pytest run and the suite is green iff every chunk is.
-# See DEVNOTES.md "XLA:CPU native-stack instability".
+# The suite runs on JAX's CPU backend (conftest.py: an 8-device virtual
+# mesh, the fused kernel in Pallas interpret mode).  Each chunk is a fresh
+# pytest process, which keeps any one process's compile count bounded; the
+# suite is green iff every chunk is.  Tests marked `gpu` skip here; on a
+# machine with the card they run with
+#   MONTECARLO_TEST_GPU=1 python -m pytest -m gpu tests/
 #
 # Usage: ./run_tests.sh [extra pytest args]
 

@@ -164,5 +164,5 @@ def install(overrides: Dict[str, Any] | None = None):
 
 def uninstall():
     for m in ("streamlit", "plotly", "plotly.graph_objects",
-              "plotly.subplots", "montecarlo_tpu.app"):
+              "plotly.subplots", "montecarlo.app"):
         sys.modules.pop(m, None)

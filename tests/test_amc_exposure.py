@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.amc import bermudan_swaption_amc_trade
-from montecarlo_tpu.engine.bermudan import bermudan_swaption_lsm
-from montecarlo_tpu.engine.exposure import (netting_set_profile,
+from montecarlo.engine.amc import bermudan_swaption_amc_trade
+from montecarlo.engine.bermudan import bermudan_swaption_lsm
+from montecarlo.engine.exposure import (netting_set_profile,
                                             swap_value_fn,
                                             swaption_value_fn)
-from montecarlo_tpu.processes import Vasicek
+from montecarlo.processes import Vasicek
 
 R0, KAPPA, THETA, SIG = 0.03, 0.6, 0.04, 0.012
 T_END, N_STEPS = 2.0, 64
@@ -87,7 +87,7 @@ def test_t0_mark_matches_lsm_pricer_and_bermudan_premium():
     # out), ours at T0 = 4*DELTA — so price levels differ; instead check
     # the EUROPEAN limit against the Jamshidian closed form, which shares
     # our exact calendar.
-    from montecarlo_tpu.engine.bermudan import vasicek_swaption_jamshidian
+    from montecarlo.engine.bermudan import vasicek_swaption_jamshidian
 
     oracle = vasicek_swaption_jamshidian((KAPPA, THETA, SIG), K, T0, DELTA,
                                          N_PAY, R0)
@@ -130,7 +130,7 @@ def test_sharded_amc_bitwise_mesh_invariant_and_matches_unsharded():
     the unsharded engine agrees to regression-conditioning noise (the
     fit differs only in one-pass vs two-pass standardization and
     block-ordered sums)."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     model = _model(T_END / N_STEPS_SH)
     amc = bermudan_swaption_amc_trade(model, K, PAY_SH, 0.4, n_exercise=3,
@@ -162,7 +162,7 @@ def test_sharded_amc_european_limit_matches_jamshidian_trade():
     equal the exact Jamshidian-marked PathDependentTrade's tail (same
     policy, same closed form), the option phase within the cubic-basis
     tolerance — the same contract the unsharded test pins."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     model = _model(T_END / N_STEPS_SH)
     t0 = 0.4
@@ -186,7 +186,7 @@ def test_sharded_amc_european_limit_matches_jamshidian_trade():
 def test_sharded_portfolio_with_amc_leg():
     """An AMC Bermudan inside one set of a TWO-set sharded portfolio:
     bitwise mesh invariance and exact additivity survive the fit."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_portfolio_xva
+    from montecarlo.parallel import make_mesh, sharded_portfolio_xva
 
     model = _model(T_END / N_STEPS_SH)
     amc = bermudan_swaption_amc_trade(model, K, PAY_SH, 0.4, n_exercise=2)
@@ -217,8 +217,8 @@ def test_streaming_amc_bitwise_matches_sharded_and_resumes(tmp_path):
     contract plain books have.  Resume == one-shot holds through an AMC
     book too (the fit is deterministic from the run config and simply
     re-runs on resume)."""
-    from montecarlo_tpu.engine.streaming import streaming_netting_profile
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.engine.streaming import streaming_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     model = _model(T_END / N_STEPS_SH)
     amc = bermudan_swaption_amc_trade(model, K, PAY_SH, 0.4, n_exercise=3)
@@ -263,8 +263,8 @@ def test_sharded_rejects_bare_simulation_marked_trade():
     """A SimulationMarkedTrade WITHOUT a structured spec cannot be
     decomposed into the distributed fit — clean TypeError, not a silent
     wrong answer."""
-    from montecarlo_tpu.engine.exposure import SimulationMarkedTrade
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.engine.exposure import SimulationMarkedTrade
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     model = _model(T_END / N_STEPS_SH)
     bare = SimulationMarkedTrade(lambda p, t, T: (p, p))
@@ -277,7 +277,7 @@ def test_sharded_rejects_bare_simulation_marked_trade():
 def test_cli_bermudan_swaption_leg(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "2048",
                    "--steps", "40", "--swaption-leg",
@@ -293,7 +293,7 @@ def test_cli_bermudan_swaption_leg_mesh(capsys):
     to the 1-device mesh."""
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     argv = ["xva", "--portfolio", "--no-csa", "--paths", "2048",
             "--steps", "40", "--swaption-leg", "--swaption-exercise", "3"]

@@ -14,13 +14,13 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.amc import (bermudan_swaption_amc_trade_g2pp,
+from montecarlo.engine.amc import (bermudan_swaption_amc_trade_g2pp,
                                        bermudan_swaption_amc_trade_lmm)
-from montecarlo_tpu.engine.exposure import netting_set_profile
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.processes.g2pp import (G2PP, g2pp_swap_value_fn,
+from montecarlo.engine.exposure import netting_set_profile
+from montecarlo.engine.simulate import simulate
+from montecarlo.processes.g2pp import (G2PP, g2pp_swap_value_fn,
                                            g2pp_swaption)
-from montecarlo_tpu.processes.lmm import LMM, lmm_par_strike, \
+from montecarlo.processes.lmm import LMM, lmm_par_strike, \
     lmm_swap_value_fn
 
 PHI, A, SG, B, ET, RHO = 0.03, 0.8, 0.01, 0.08, 0.012, -0.7
@@ -112,7 +112,7 @@ def test_lmm_t0_mark_matches_standalone_lsm_pricer():
     `lmm_bermudan_swaption_lsm` pricer (same contract, same regression
     family, independent implementation/grid) within joint MC bars, and
     carry the Bermudan premium direction."""
-    from montecarlo_tpu.engine.bermudan import lmm_bermudan_swaption_lsm
+    from montecarlo.engine.bermudan import lmm_bermudan_swaption_lsm
 
     m = _lmm()
     start, end, n_ex = 4, 10, 3
@@ -156,7 +156,7 @@ def test_sharded_ms_amc_bitwise_mesh_invariant_and_matches_unsharded():
     unsharded engine agrees to regression-conditioning noise (one-pass
     vs two-pass standardization, block-ordered sums) — the same contract
     the scalar AMC test pins."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     m = _g2()
     swap = g2pp_swap_value_fn(m, KSTRIKE, PAY_TIMES, PAY_DT)
@@ -186,7 +186,7 @@ def test_sharded_ms_amc_bitwise_mesh_invariant_and_matches_unsharded():
 
 def test_sharded_lmm_amc_mesh_invariant():
     """Same bitwise contract on the LMM (K+1 state components)."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     m = _lmm()
     k_par = lmm_par_strike(m, 4, 12)
@@ -213,10 +213,10 @@ def test_scalar_amc_bitwise_at_one_block_per_shard():
     compiled differently per mesh shape and flipped fit ULPs — the fit
     now produces every per-block partial with a fixed single-block body
     (found on the LMM book, fixed for the scalar fit too)."""
-    from montecarlo_tpu.engine.amc import bermudan_swaption_amc_trade
-    from montecarlo_tpu.engine.exposure import swap_value_fn
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
-    from montecarlo_tpu.processes import Vasicek
+    from montecarlo.engine.amc import bermudan_swaption_amc_trade
+    from montecarlo.engine.exposure import swap_value_fn
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.processes import Vasicek
 
     vas = Vasicek.create(0.03, 0.6, 0.04, 0.012, DT, dtype=jnp.float64)
     trades = (swap_value_fn(vas, 0.035, PAY_TIMES, PAY_DT),
@@ -241,9 +241,9 @@ def test_degenerate_date_slope_zeroed_at_f32():
     (g2pp 3792 vs peak 0.01, caught driving the CLI on chip; the scalar
     Vasicek AMC shared the bug).  The `_slope_ok` floor zeroes it in
     BOTH engines; real-spread dates keep their IM."""
-    from montecarlo_tpu.engine.amc import bermudan_swaption_amc_trade
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
-    from montecarlo_tpu.processes import Vasicek
+    from montecarlo.engine.amc import bermudan_swaption_amc_trade
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.processes import Vasicek
 
     m = G2PP.create(PHI, A, SG, B, ET, RHO, 0.25, dtype=jnp.float32)
     tr = bermudan_swaption_amc_trade_g2pp(m, KSTRIKE, (1.5, 2.0), 0.5,
@@ -272,9 +272,9 @@ def test_degenerate_date_slope_zeroed_at_f32():
 def test_spec_mismatch_rejected():
     """A SCALAR AMC spec on a multi-state book (and vice versa) is a
     loud TypeError, not a shape crash inside the fit."""
-    from montecarlo_tpu.engine.amc import bermudan_swaption_amc_trade
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
-    from montecarlo_tpu.processes import Vasicek
+    from montecarlo.engine.amc import bermudan_swaption_amc_trade
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.processes import Vasicek
 
     m = _g2()
     vas = Vasicek.create(0.03, 0.6, 0.04, 0.012, DT, dtype=jnp.float64)
@@ -297,8 +297,8 @@ def test_streaming_ms_amc_bitwise_matches_sharded():
     same signed-intrinsic rows, and the G2++ Bermudan netting profile's
     per-date means are BITWISE the sharded engine's (round 5 emptied the
     streaming exclusion list down to WWR)."""
-    from montecarlo_tpu.engine.streaming import streaming_netting_profile
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.engine.streaming import streaming_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     m = _g2()
     tr = bermudan_swaption_amc_trade_g2pp(m, KSTRIKE, PAY_TIMES, PAY_DT,
@@ -318,9 +318,9 @@ def test_streaming_ms_amc_bitwise_matches_sharded():
 def test_streaming_amc_requires_matching_spec_form():
     """A scalar-spec AMC trade on a multi-state underlying is rejected by
     the streaming engine with the same message as the sharded ones."""
-    from montecarlo_tpu.engine.amc import bermudan_swaption_amc_trade
-    from montecarlo_tpu.engine.streaming import streaming_netting_profile
-    from montecarlo_tpu.processes import Vasicek
+    from montecarlo.engine.amc import bermudan_swaption_amc_trade
+    from montecarlo.engine.streaming import streaming_netting_profile
+    from montecarlo.processes import Vasicek
 
     vas = Vasicek.create(0.03, 0.6, 0.04, 0.012, DT, dtype=jnp.float64)
     scalar_tr = bermudan_swaption_amc_trade(vas, KSTRIKE, PAY_TIMES,
@@ -332,7 +332,7 @@ def test_streaming_amc_requires_matching_spec_form():
 
 
 def test_cli_xva_g2pp_swaption_leg(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     # Calendar aligned with the grid: maturity 2y / 4 periods (pay_dt
     # 0.5) on 8 steps (dt 0.25) — exercise dates 1.0, 1.5 land on rows.
@@ -358,7 +358,7 @@ def test_cli_xva_g2pp_swaption_leg(capsys):
 
 
 def test_cli_xva_lmm_swaption_leg_mesh(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     args = ["xva", "--portfolio", "--underlying", "lmm", "--no-csa",
             "--paths", "1024", "--steps", "8", "--maturity", "2.0",

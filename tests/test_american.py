@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from montecarlo_tpu.engine import black_scholes_call, black_scholes_put
-from montecarlo_tpu.engine.american import binomial_american_put, lsm_price
-from montecarlo_tpu.processes import GBM
+from montecarlo.engine import black_scholes_call, black_scholes_put
+from montecarlo.engine.american import binomial_american_put, lsm_price
+from montecarlo.processes import GBM
 import jax.numpy as jnp
 
 R, SIGMA, T = 0.06, 0.2, 1.0
@@ -47,12 +47,12 @@ def test_andersen_broadie_brackets_binomial():
     binomial price, and the gap must be tight for a good policy."""
     import jax.numpy as jnp
 
-    from montecarlo_tpu.engine.american import (
+    from montecarlo.engine.american import (
         andersen_broadie_bound,
         binomial_american_put,
         lsm_policy,
     )
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.processes import GBM
 
     s0, strike, r, sigma, T = 100.0, 105.0, 0.05, 0.2, 0.5
     steps = 32
@@ -80,10 +80,10 @@ def test_andersen_broadie_upper_is_above_european():
     """Sanity: the American upper bound dominates the European value."""
     import jax.numpy as jnp
 
-    from montecarlo_tpu.engine.american import (
+    from montecarlo.engine.american import (
         andersen_broadie_bound, lsm_policy)
-    from montecarlo_tpu.engine.payoffs import black_scholes_put
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.engine.payoffs import black_scholes_put
+    from montecarlo.processes import GBM
 
     s0, strike, r, sigma, T = 100.0, 110.0, 0.05, 0.25, 1.0
     steps = 16
@@ -105,12 +105,12 @@ def test_andersen_broadie_same_seed_as_policy_stays_upper():
     biased and silently below the true price)."""
     import jax.numpy as jnp
 
-    from montecarlo_tpu.engine.american import (
+    from montecarlo.engine.american import (
         andersen_broadie_bound,
         binomial_american_put,
         lsm_policy,
     )
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.processes import GBM
 
     s0, strike, r, sigma, T = 100.0, 105.0, 0.05, 0.2, 0.5
     steps = 32
@@ -130,8 +130,8 @@ def test_lsm_is_process_generic_heston():
     put must dominate the European (CF-priced) and stay below strike."""
     import jax.numpy as jnp
 
-    from montecarlo_tpu.engine.heston_analytic import HestonParams, heston_call_cf
-    from montecarlo_tpu.processes import Heston
+    from montecarlo.engine.heston_analytic import HestonParams, heston_call_cf
+    from montecarlo.processes import Heston
 
     s0, k, r, T, n_steps = 100.0, 100.0, 0.05, 0.5, 50
     hp = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.5, rho=-0.6)
@@ -153,9 +153,9 @@ def test_american_asian_lsm_properties():
     """American-Asian via LSM on (spot, running-average): European parity
     at exercise_from=T, monotonicity in exercise rights, early-exercise
     premium for the put, and vanilla degeneracy."""
-    from montecarlo_tpu.engine import (ARITH_MEAN, mc_estimate,
+    from montecarlo.engine import (ARITH_MEAN, mc_estimate,
                                        simulate_functionals)
-    from montecarlo_tpu.engine.american import lsm_price_path_dependent
+    from montecarlo.engine.american import lsm_price_path_dependent
 
     n, steps = 1 << 14, 32
     dt = T / steps

@@ -6,11 +6,11 @@ European degeneracy, and out-of-sample price consistency."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import (american_price_and_greeks,
+from montecarlo.engine import (american_price_and_greeks,
                                    binomial_american_put,
                                    black_scholes_delta, lsm_exercise_policy,
                                    lsm_price)
-from montecarlo_tpu.processes import GBM
+from montecarlo.processes import GBM
 
 S0, K, R, SIG, T = 36.0, 40.0, 0.06, 0.2, 1.0
 STEPS = 50

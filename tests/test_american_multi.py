@@ -14,10 +14,10 @@ brackets containing these — an end-to-end check no unit oracle provides.
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import (andersen_broadie_bound_multi, lsm_price,
+from montecarlo.engine import (andersen_broadie_bound_multi, lsm_price,
                                    lsm_policy_multi, lsm_price_multi,
                                    max_call)
-from montecarlo_tpu.processes import GBM, MultiGBM
+from montecarlo.processes import GBM, MultiGBM
 
 R, DIV, SIG, T, K = 0.05, 0.10, 0.20, 3.0, 100.0
 N_EX = 9          # exercise dates (GBM is exact over any dt)
@@ -82,7 +82,7 @@ def test_cli_max_call(capsys):
     13.902 even at smoke-test path counts."""
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["price", "--payoff", "max-call", "--n-assets", "2",
                    "--div", "0.10", "--rate", "0.05", "--sigma", "0.2",

@@ -6,11 +6,11 @@ own process."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import (andersen_broadie_bound_sv,
+from montecarlo.engine import (andersen_broadie_bound_sv,
                                    binomial_american_put, lsm_policy_sv,
                                    lsm_price, lsm_price_sv)
-from montecarlo_tpu.engine.heston_analytic import HestonParams, heston_call_cf
-from montecarlo_tpu.processes import GARCHBootstrap, Heston
+from montecarlo.engine.heston_analytic import HestonParams, heston_call_cf
+from montecarlo.processes import GARCHBootstrap, Heston
 
 
 def _put(k):
@@ -80,7 +80,7 @@ def test_garch_american_put():
     est = lsm_price_sv(proc, _put(k), 1 << 16, steps, seed=11, rate=r,
                        dt=dt, degree=2)
     # European on the same paths/payoff.
-    from montecarlo_tpu.engine import mc_estimate, simulate
+    from montecarlo.engine import mc_estimate, simulate
 
     term = simulate(proc, 1 << 16, steps, seed=11)
     euro = mc_estimate(jnp.maximum(k - term, 0.0),

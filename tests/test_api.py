@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from montecarlo_tpu.api import analyze_ticker, scan_tickers
-from montecarlo_tpu.config import ModelConfig
-from montecarlo_tpu.data import get_stock_data, get_ticker_list
+from montecarlo.api import analyze_ticker, scan_tickers
+from montecarlo.config import ModelConfig
+from montecarlo.data import get_stock_data, get_ticker_list
 
 
 def test_get_ticker_list_offline_fallbacks():
@@ -80,7 +80,7 @@ def test_scanner_failure_taxonomy():
 
 def test_batched_scanner_matches_threaded():
     """The vmapped batch scanner agrees with the threaded scanner."""
-    from montecarlo_tpu.api import scan_tickers_batched
+    from montecarlo.api import scan_tickers_batched
 
     tickers = ["AAPL", "MSFT", "GOOGL", "AMZN", "NVDA"]
     cfg = ModelConfig.fast()
@@ -106,7 +106,7 @@ def test_batched_scanner_chunking_invariant():
     """device_batch chunking (incl. a padded tail) changes NO record: every
     fit is keyed by (seed, tree index), never by batch position, and padded
     rows are discarded (batch_scan._padded_chunks)."""
-    from montecarlo_tpu.api import scan_tickers_batched
+    from montecarlo.api import scan_tickers_batched
 
     tickers = ["AAPL", "MSFT", "GOOGL", "AMZN", "NVDA"]
     cfg = ModelConfig.fast()
@@ -122,7 +122,7 @@ def test_batched_scanner_chunking_invariant():
 
 
 def test_batched_scanner_failure_records():
-    from montecarlo_tpu.api import scan_tickers_batched
+    from montecarlo.api import scan_tickers_batched
 
     res = scan_tickers_batched(["AAPL", "MSFT"], config=ModelConfig.full(),
                                period="1y", provider="synthetic")
@@ -137,7 +137,7 @@ def test_scanner_per_ticker_timeout(monkeypatch):
     resetting it (round-1 weak spot; reference app.py:1399 semantics)."""
     import time as _time
 
-    import montecarlo_tpu.api.scanner as scanner_mod
+    import montecarlo.api.scanner as scanner_mod
 
     def fake_scan(ticker, **kw):
         if ticker == "STUCK":
@@ -172,7 +172,7 @@ def test_scanner_terminates_when_pool_is_wedged(monkeypatch):
     here because queued futures never get a start time)."""
     import time as _time
 
-    import montecarlo_tpu.api.scanner as scanner_mod
+    import montecarlo.api.scanner as scanner_mod
 
     def hung_scan(ticker, **kw):
         _time.sleep(60.0)  # far beyond the test's patience
@@ -195,7 +195,7 @@ def test_scanner_duplicate_tickers_have_independent_deadlines(monkeypatch):
     keyed per submission, not per ticker string)."""
     import time as _time
 
-    import montecarlo_tpu.api.scanner as scanner_mod
+    import montecarlo.api.scanner as scanner_mod
 
     def ok_scan(ticker, **kw):
         _time.sleep(0.8)
@@ -218,7 +218,7 @@ def test_scanner_duplicate_tickers_have_independent_deadlines(monkeypatch):
 def test_garch_mc_antithetic_tightens_bands():
     """antithetic=True must stay unbiased (bands agree within noise) and
     reduce the estimator variance of the expected return."""
-    from montecarlo_tpu.api import garch_monte_carlo
+    from montecarlo.api import garch_monte_carlo
 
     data = get_stock_data("AAPL", "3y", provider="synthetic")
     s0 = float(np.asarray(data["Close"])[-1])

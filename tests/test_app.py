@@ -1,4 +1,4 @@
-"""Smoke tests for the Streamlit dashboard (montecarlo_tpu/app.py).
+"""Smoke tests for the Streamlit dashboard (montecarlo/app.py).
 
 streamlit/plotly are absent from this image, so a recording fake module
 (tests/fake_streamlit.py) stands in: every page executes its REAL pipeline
@@ -22,7 +22,7 @@ def app_with(request):
 
     def factory(overrides=None):
         calls, _ = fake_streamlit.install(overrides)
-        import montecarlo_tpu.app as app
+        import montecarlo.app as app
         app = importlib.reload(app)
         made.append(app)
         return app, calls
@@ -73,7 +73,7 @@ def test_single_stock_page_bad_ticker_graceful(app_with):
     # Ticker with too little history -> analyze returns None -> st.error.
     app, calls = app_with({
         "Mode": "Single Stock", "Ticker": "SYN", "_period_override": None})
-    import montecarlo_tpu.api as api
+    import montecarlo.api as api
 
     real = api.analyze_ticker
     app.analyze_ticker = lambda *a, **kw: None

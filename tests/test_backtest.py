@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.backtest import WalkForwardBacktester
-from montecarlo_tpu.backtest.engine import _trade_scan
-from montecarlo_tpu.config import ModelConfig, TradingConfig
-from montecarlo_tpu.data.synthetic import generate_ohlcv
-from montecarlo_tpu.quant import features_to_numpy
+from montecarlo.backtest import WalkForwardBacktester
+from montecarlo.backtest.engine import _trade_scan
+from montecarlo.config import ModelConfig, TradingConfig
+from montecarlo.data.synthetic import generate_ohlcv
+from montecarlo.quant import features_to_numpy
 
 
 def _python_trade_oracle(prices, signals, cfg: TradingConfig):
@@ -116,8 +116,8 @@ def test_backtester_insufficient_data_returns_none():
 
 def test_batched_backtest_matches_single(feature_data):
     """Vmapped portfolio backtest == the single-ticker engine per ticker."""
-    from montecarlo_tpu.backtest import backtest_tickers_batched
-    from montecarlo_tpu.data import get_stock_data
+    from montecarlo.backtest import backtest_tickers_batched
+    from montecarlo.data import get_stock_data
 
     data_by_ticker = {t: get_stock_data(t, "5y", provider="synthetic")
                       for t in ("AAPL", "MSFT")}
@@ -141,8 +141,8 @@ def test_batched_backtest_matches_single(feature_data):
 
 
 def test_batched_backtest_guards():
-    from montecarlo_tpu.backtest import backtest_tickers_batched
-    from montecarlo_tpu.data import get_stock_data
+    from montecarlo.backtest import backtest_tickers_batched
+    from montecarlo.data import get_stock_data
 
     short = get_stock_data("TSLA", "2y", provider="synthetic")
     out = backtest_tickers_batched({"TSLA": short},
@@ -152,7 +152,7 @@ def test_batched_backtest_guards():
 
 def test_zero_trades_metrics():
     """All-flat signals: no trades, flat equity, zeroed trade statistics."""
-    from montecarlo_tpu.backtest.engine import assemble_results
+    from montecarlo.backtest.engine import assemble_results
 
     prices = np.linspace(100, 110, 50).astype(np.float32)
     signals = np.zeros(50, np.int32)

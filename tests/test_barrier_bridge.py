@@ -6,7 +6,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import (
+from montecarlo.engine import (
     RUNNING_MAX,
     black_scholes_call,
     european_call,
@@ -14,8 +14,8 @@ from montecarlo_tpu.engine import (
     simulate_functionals,
     up_and_out_call,
 )
-from montecarlo_tpu.engine.functionals import ARITH_MEAN, barrier_survival_up
-from montecarlo_tpu.processes import GBM, BasketGBM
+from montecarlo.engine.functionals import ARITH_MEAN, barrier_survival_up
+from montecarlo.processes import GBM, BasketGBM
 
 S0, R, SIGMA, T, STRIKE, BARRIER = 100.0, 0.03, 0.2, 1.0, 100.0, 125.0
 
@@ -76,7 +76,7 @@ def test_gamma_by_double_autodiff():
     the smoothed estimator — validated against the closed form)."""
     from scipy.stats import norm
 
-    from montecarlo_tpu.engine import simulate
+    from montecarlo.engine import simulate
 
     n, n_steps = 1 << 15, 64
 

@@ -4,10 +4,10 @@ fused-engine bitwise parity."""
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlo_tpu.engine import european_call, mc_estimate, simulate
-from montecarlo_tpu.engine.cf_pricing import cf_call_price
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import Bates, Heston, bates_log_cf
+from montecarlo.engine import european_call, mc_estimate, simulate
+from montecarlo.engine.cf_pricing import cf_call_price
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import Bates, Heston, bates_log_cf
 
 S0, R, STRIKE, T = 100.0, 0.03, 105.0, 1.0
 PARAMS = dict(v0=0.04, kappa=2.0, theta=0.04, xi=0.5, rho=-0.7)
@@ -28,7 +28,7 @@ def test_bates_matches_cf_price():
     # Jumps with negative mean must raise the OTM put wing / price vs pure
     # Heston at the same diffusion parameters (risk compensation shifts
     # drift, but the smile fattens): compare CF prices well OTM.
-    from montecarlo_tpu.engine.heston_analytic import (HestonParams,
+    from montecarlo.engine.heston_analytic import (HestonParams,
                                                       heston_call_cf)
     hp = HestonParams(**{k: jnp.asarray(v) for k, v in PARAMS.items()})
     put_wing_bates = float(cf_call_price(phi, S0, 70.0, T, R))
@@ -65,5 +65,5 @@ def test_bates_fused_matches_scan_ulp():
     proc = Bates.create(s0=S0, mu=R, dt=1 / 252, **PARAMS, **JUMPS)
     ref = np.asarray(simulate(proc, n, 16, seed=7))
     ker = np.asarray(fused_terminal_pallas(proc, n, 16, seed=7,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     np.testing.assert_allclose(ker, ref, rtol=2e-6)

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine.cf_pricing import cf_call_price
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import Bates, BatesQE, bates_log_cf
+from montecarlo.engine.cf_pricing import cf_call_price
+from montecarlo.engine.simulate import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import Bates, BatesQE, bates_log_cf
 
 # Feller-violating variance leg + meaningful jumps.
 P = dict(s0=100.0, v0=0.04, mu=0.0, kappa=0.5, theta=0.04, xi=1.0,
@@ -69,7 +69,7 @@ def test_coarse_step_call_beats_euler_vs_cf_oracle():
 def test_lam_zero_reduces_to_heston_qe_price():
     """With lam=0 the jump leg vanishes; the price must agree with
     HestonQE's at MC resolution (different draw layout, same law)."""
-    from montecarlo_tpu.processes import HestonQE
+    from montecarlo.processes import HestonQE
 
     n, steps = 1 << 17, 8
     k = 100.0
@@ -109,7 +109,7 @@ def test_fused_kernel_parity_ulp():
     n = 128 * 128
     ref = np.asarray(simulate(proc, n, 16, seed=5))
     ker = np.asarray(fused_terminal_pallas(proc, n, 16, seed=5,
-                                           block_rows=64, interpret=True))
+                                           block=128, interpret=True))
     np.testing.assert_allclose(ker, ref, rtol=1e-5, atol=0.0)
 
 
@@ -123,7 +123,7 @@ def test_create_validation():
 def test_cli_price_prints_cf_oracle(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     assert cli.main(["price", "--process", "bates-qe", "--paths", "16384",
                      "--steps", "16", "--strike", "100", "--rate", "0.0",

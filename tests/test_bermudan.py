@@ -4,12 +4,12 @@ form, and exercise-right monotonicity."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.bermudan import (
+from montecarlo.engine.bermudan import (
     bermudan_swaption_lsm,
     vasicek_swaption_jamshidian,
 )
-from montecarlo_tpu.engine.rates import vasicek_zcb
-from montecarlo_tpu.processes import Vasicek
+from montecarlo.engine.rates import vasicek_zcb
+from montecarlo.processes import Vasicek
 
 R0, KAPPA, THETA, SIGMA = 0.03, 0.5, 0.04, 0.012
 STEPS_PER_PERIOD, N_PERIODS = 16, 8
@@ -70,7 +70,7 @@ def test_deterministic():
 
 def test_jamshidian_degenerates_to_bond_option():
     """One-period swap: the swaption IS a single bond put (scaled)."""
-    from montecarlo_tpu.engine.rates import vasicek_bond_option
+    from montecarlo.engine.rates import vasicek_bond_option
 
     strike = 0.035
     cf = vasicek_swaption_jamshidian((KAPPA, THETA, SIGMA), strike, t0=1.0,

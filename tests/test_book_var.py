@@ -7,9 +7,9 @@ import pytest
 import jax.numpy as jnp
 from scipy.stats import norm
 
-from montecarlo_tpu.engine.exposure import (book_var, swap_value_fn,
+from montecarlo.engine.exposure import (book_var, swap_value_fn,
                                             swaption_value_fn)
-from montecarlo_tpu.processes import GBM, Vasicek
+from montecarlo.processes import GBM, Vasicek
 
 H = 10.0 / 252.0
 N = 1 << 15
@@ -70,7 +70,7 @@ def test_tail_coherence_and_swaption_book():
 
 
 def test_amc_trades_rejected():
-    from montecarlo_tpu.engine.amc import bermudan_swaption_amc_trade
+    from montecarlo.engine.amc import bermudan_swaption_amc_trade
 
     model = Vasicek.create(0.03, 0.6, 0.04, 0.012, H / 10,
                            dtype=jnp.float64)
@@ -84,7 +84,7 @@ def test_amc_trades_rejected():
 def test_cli_book_var(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "4096",
                    "--steps", "40", "--var-horizon", str(H)])

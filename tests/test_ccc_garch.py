@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import CCCGarch, GARCHBootstrap
+from montecarlo.engine import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import CCCGarch, GARCHBootstrap
 
 CORR = np.array([[1.0, 0.5, 0.2], [0.5, 1.0, 0.4], [0.2, 0.4, 1.0]])
 
@@ -61,5 +61,5 @@ def test_fused_kernel_parity():
     n = 128 * 64
     ref = np.asarray(simulate(_ccc(), n, 9, seed=5))
     ker = np.asarray(fused_terminal_pallas(_ccc(), n, 9, seed=5,
-                                           block_rows=64, interpret=True))
+                                           block=128, interpret=True))
     np.testing.assert_array_equal(ker, ref)

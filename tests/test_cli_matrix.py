@@ -16,7 +16,7 @@ import json
 
 import pytest
 
-from montecarlo_tpu import cli
+from montecarlo import cli
 
 PROCESSES = ["gbm", "cev", "heston", "heston-qe", "bates", "bates-qe",
              "merton", "kou", "nig", "vg", "sabr", "rbergomi", "slv",

@@ -15,7 +15,7 @@ import pytest
 import scipy.stats as st
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.credit import cdo_tranche, kth_to_default_cds
+from montecarlo.engine.credit import cdo_tranche, kth_to_default_cds
 
 N_NAMES, HAZ, REC, RHO = 20, 0.02, 0.4, 0.3
 T, N_STEPS, N_PATHS, SEED = 5.0, 20, 1 << 16, 11
@@ -180,7 +180,7 @@ def test_sharded_credit_bitwise_mesh_invariant_and_match():
     """Pod twin: legs/spread/bars bitwise across 1/4/8-device meshes
     (incl. the multi-slice mesh) and equal to the unsharded engine to
     fp-reassociation noise."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_credit_legs
+    from montecarlo.parallel import make_mesh, sharded_credit_legs
 
     kw = dict(T=T, seed=SEED, product="tranche", attach=0.03, detach=0.10,
               recovery=REC, rate=RATE, block_size=256)
@@ -221,7 +221,7 @@ def test_sharded_credit_bitwise_mesh_invariant_and_match():
 def test_t_icdf_matches_scipy():
     """The jax-native inverse Student-t CDF (Newton on betainc) agrees
     with scipy.stats.t.ppf to near roundoff across body and tails."""
-    from montecarlo_tpu.engine.credit import t_icdf
+    from montecarlo.engine.credit import t_icdf
 
     p = np.array([1e-8, 1e-5, 1e-3, 0.1, 0.5, 0.9, 0.999, 1 - 1e-6])
     for df in (2, 4, 8):
@@ -305,7 +305,7 @@ def test_student_t_copula_exact_oracle_and_tail_dependence():
 
 
 def test_student_t_sharded_bitwise_and_matches_unsharded():
-    from montecarlo_tpu.parallel import make_mesh, sharded_credit_legs
+    from montecarlo.parallel import make_mesh, sharded_credit_legs
 
     kw = dict(T=T, seed=SEED, product="kth", k=2, recovery=REC,
               rate=RATE, copula="student-t", df=4, block_size=256)
@@ -326,7 +326,7 @@ def test_exact_pricer_matches_independent_oracle_and_mc():
     """`tranche_spread_exact` (the JAX Gauss-Hermite x binomial pricer)
     agrees with this file's independent scipy oracle to quadrature
     precision, and the MC engine sits within its own bars of it."""
-    from montecarlo_tpu.engine.credit import tranche_spread_exact
+    from montecarlo.engine.credit import tranche_spread_exact
 
     a, b = 0.03, 0.10
     ex = tranche_spread_exact(HAZ, RHO, n_names=N_NAMES, attach=a,
@@ -349,7 +349,7 @@ def test_exact_pricer_matches_independent_oracle_and_mc():
 def test_exact_pricer_greeks_vs_finite_differences():
     """hazard_delta and rho_sens from autodiff through the quadrature
     match central finite differences of the exact spread."""
-    from montecarlo_tpu.engine.credit import tranche_spread_exact
+    from montecarlo.engine.credit import tranche_spread_exact
 
     kw = dict(n_names=N_NAMES, attach=0.03, detach=0.10, T=T,
               n_steps=N_STEPS, rate=RATE, recovery=REC)
@@ -377,7 +377,7 @@ def test_base_correlation_roundtrip():
     rejects unattainable targets with the attainable range."""
     import pytest
 
-    from montecarlo_tpu.engine.credit import (base_correlation,
+    from montecarlo.engine.credit import (base_correlation,
                                               tranche_spread_exact)
 
     kw = dict(n_names=N_NAMES, T=T, n_steps=N_STEPS, rate=RATE,
@@ -393,7 +393,7 @@ def test_base_correlation_roundtrip():
 def test_cli_credit(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["credit", "--names", "20", "--hazard", "0.02",
                    "--rho", "0.3", "--attach", "0.03", "--detach", "0.07",
@@ -422,7 +422,7 @@ def test_cli_credit(capsys):
     assert out["hazard_delta"] > 0
 
     # --base-corr: a generated equity-tranche spread inverts back.
-    from montecarlo_tpu.engine.credit import tranche_spread_exact
+    from montecarlo.engine.credit import tranche_spread_exact
 
     eq = tranche_spread_exact(0.02, 0.35, n_names=20, attach=0.0,
                               detach=0.03, T=5.0, n_steps=20, rate=0.03)

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import CCCGarch, DCCGarch
+from montecarlo.engine import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import CCCGarch, DCCGarch
 
 QBAR = np.array([[1.0, 0.5, 0.2], [0.5, 1.0, 0.4], [0.2, 0.4, 1.0]])
 S0 = [100.0, 50.0, 75.0]
@@ -90,7 +90,7 @@ def test_correlation_clustering_dynamics():
 def test_fused_kernel_bitwise_parity():
     proc = _dcc(a=0.05, b=0.9)
     a = fused_terminal_pallas(proc, 8192, 9, seed=3, interpret=True,
-                              block_rows=64)
+                              block=128)
     b = simulate(proc, 8192, 9, seed=3)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 

@@ -4,14 +4,14 @@ vanilla-repricing roundtrip through a Heston-generated surface."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import european_call, mc_estimate, simulate
-from montecarlo_tpu.engine.heston_analytic import HestonParams, heston_call_cf
-from montecarlo_tpu.engine.implied_vol import implied_vol_call
-from montecarlo_tpu.processes.dupire import (
+from montecarlo.engine import european_call, mc_estimate, simulate
+from montecarlo.engine.heston_analytic import HestonParams, heston_call_cf
+from montecarlo.engine.implied_vol import implied_vol_call
+from montecarlo.processes.dupire import (
     dupire_local_vol_grid,
     local_vol_fn_from_ivs,
 )
-from montecarlo_tpu.processes.local_vol import LocalVolGBM
+from montecarlo.processes.local_vol import LocalVolGBM
 
 S0, RATE = 100.0, 0.03
 STRIKES = np.linspace(70.0, 140.0, 15)

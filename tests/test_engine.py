@@ -4,14 +4,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine import (
+from montecarlo.engine import (
     black_scholes_call,
     discount_factor,
     european_call,
     mc_estimate,
     simulate,
 )
-from montecarlo_tpu.processes import GBM, GARCHBootstrap, Heston, MultiGBM
+from montecarlo.processes import GBM, GARCHBootstrap, Heston, MultiGBM
 
 S0, R, SIGMA, T_YEARS, STRIKE = 100.0, 0.03, 0.2, 1.0, 105.0
 N_STEPS = 252
@@ -154,7 +154,7 @@ def test_heston_matches_semianalytic_price():
 def test_replay_arbitrary_paths_bit_exact():
     """Any subset of a run regenerates bit-exactly from ids + seed alone —
     the failure-recovery / audit primitive."""
-    from montecarlo_tpu.engine import replay_paths
+    from montecarlo.engine import replay_paths
 
     full = np.asarray(simulate(_gbm(), 4096, 16, seed=5))
     ids = jnp.asarray([0, 17, 1000, 4095, 2048], jnp.uint32)
@@ -176,7 +176,7 @@ def test_price_to_tolerance_non_block_aligned_chunks():
     fallback path computes one state per chunk (code-review regression)."""
     import jax.numpy as jnp
 
-    from montecarlo_tpu.engine.pricing import price_to_tolerance
+    from montecarlo.engine.pricing import price_to_tolerance
 
     proc = GBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=1.0 / 16.0)
     out = price_to_tolerance(
@@ -192,10 +192,10 @@ def test_quanto_call_matches_closed_form():
     match the closed form; rho = 0 degenerates to plain BS with r_f drift."""
     import numpy as np
 
-    from montecarlo_tpu.engine import (black_scholes_quanto_call,
+    from montecarlo.engine import (black_scholes_quanto_call,
                                        european_call, mc_estimate,
                                        quanto_drift, simulate)
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.processes import GBM
 
     s0, k, r_d, r_f = 100.0, 105.0, 0.05, 0.01
     sig, sig_fx, rho, T = 0.25, 0.12, -0.45, 1.0
@@ -209,7 +209,7 @@ def test_quanto_call_matches_closed_form():
     assert abs(float(est["price"]) - cf) < 4 * float(est["std_err"]), \
         (float(est["price"]), cf)
     # rho = 0: reduces to BS with drift r_f, domestic discounting.
-    from montecarlo_tpu.engine import black_scholes_call
+    from montecarlo.engine import black_scholes_call
 
     cf0 = float(black_scholes_quanto_call(s0, k, r_d, r_f, sig, sig_fx,
                                           0.0, T))

@@ -6,9 +6,9 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import exposure_profile, swap_value_fn
-from montecarlo_tpu.engine.functionals import variance_swap_strike_mc
-from montecarlo_tpu.processes import GBM, Heston, Vasicek
+from montecarlo.engine.exposure import exposure_profile, swap_value_fn
+from montecarlo.engine.functionals import variance_swap_strike_mc
+from montecarlo.processes import GBM, Heston, Vasicek
 
 
 def test_variance_swap_strike_gbm():
@@ -89,7 +89,7 @@ def test_mid_period_float_leg_carries_in_period_fixing():
     1 - P(t,T_last), in-period fixing dropped) drifts by O(coupon) inside
     the period; the fixing-aware valuation must stay flat within MC
     tolerance (advisor finding r2 #3)."""
-    from montecarlo_tpu.engine.simulate import simulate
+    from montecarlo.engine.simulate import simulate
 
     model = Vasicek.create(R0, KAPPA, THETA, SIG, T / N_STEPS,
                            dtype=jnp.float64)
@@ -221,7 +221,7 @@ def test_bilateral_reduces_to_unilateral():
 def test_cli_xva(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--paths", "4096", "--steps", "40"])
     assert rc == 0
@@ -285,8 +285,8 @@ def test_equity_forward_cva_black_scholes_oracle():
     z sigma sqrt(MPOR) E[S_t] exactly (dV/dS = 1)."""
     from scipy.stats import norm
 
-    from montecarlo_tpu.engine import black_scholes_call
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.engine import black_scholes_call
+    from montecarlo.processes import GBM
 
     s0, strike, r, sigma, T_fwd = 100.0, 100.0, 0.03, 0.25, 2.0
     n_steps, n_paths = 64, 1 << 15
@@ -321,7 +321,7 @@ def test_equity_forward_cva_black_scholes_oracle():
 def test_cli_xva_equity(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--underlying", "equity", "--paths", "4096",
                    "--steps", "32", "--im-spread", "0.001"])
@@ -342,7 +342,7 @@ def test_netting_zero_threshold_instant_collateral_kills_exposure():
     """H=0, MTA=0, MPoR=0: collateral tracks the netted value exactly, so
     the collateralized EPE/ENE are identically zero and every xVA on the
     collateralized exposure vanishes — the pinned CSA limit."""
-    from montecarlo_tpu.engine.exposure import CSA, netting_set_profile
+    from montecarlo.engine.exposure import CSA, netting_set_profile
 
     model = Vasicek.create(R0, KAPPA, THETA, SIG, T / N_STEPS,
                            dtype=jnp.float64)
@@ -367,7 +367,7 @@ def test_netting_mpor_gap_risk_closed_form():
     theta = r0): with zero thresholds/MTA the collateralized exposure is
     the MPoR increment (V_t - V_{t-delta})^+, whose mean is the
     closed-form half-normal c*sigma*sqrt(delta)/sqrt(2*pi)."""
-    from montecarlo_tpu.engine.exposure import CSA, netting_set_profile
+    from montecarlo.engine.exposure import CSA, netting_set_profile
 
     steps, t_end = 64, 2.0
     dt = t_end / steps
@@ -394,7 +394,7 @@ def test_netting_offsets_and_no_netting_baseline():
     """A perfectly offsetting book nets to zero (cva == 0) while the
     standalone per-trade baseline still charges both legs; partial
     offsets land strictly between."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
+    from montecarlo.engine.exposure import netting_set_profile
 
     model = Vasicek.create(R0, KAPPA, THETA, SIG, T / N_STEPS,
                            dtype=jnp.float64)
@@ -415,7 +415,7 @@ def test_netting_offsets_and_no_netting_baseline():
 def test_netting_single_trade_matches_exposure_profile():
     """csa=None, one trade: the netting-set EPE equals the single-trade
     engine's EPE on the same seed/paths (same simulation, same marks)."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
+    from montecarlo.engine.exposure import netting_set_profile
 
     model = Vasicek.create(R0, KAPPA, THETA, SIG, T / N_STEPS,
                            dtype=jnp.float64)
@@ -446,7 +446,7 @@ def test_netting_im_nets_across_offsetting_trades():
     """IM is computed on the NETTED sensitivity: a book of (v, -v) has
     dV_net/dr == 0, so the netted IM vanishes while each standalone trade
     carries real IM — and a scaled single trade scales IM linearly."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
+    from montecarlo.engine.exposure import netting_set_profile
 
     model = Vasicek.create(R0, KAPPA, THETA, SIG, T / N_STEPS,
                            dtype=jnp.float64)
@@ -470,7 +470,7 @@ def test_netting_csa_guards_and_mta():
     a sub-grid MPoR warns that the gap risk is invisible."""
     import pytest
 
-    from montecarlo_tpu.engine.exposure import CSA, netting_set_profile
+    from montecarlo.engine.exposure import CSA, netting_set_profile
 
     model = Vasicek.create(R0, KAPPA, THETA, SIG, T / N_STEPS,
                            dtype=jnp.float64)
@@ -497,7 +497,7 @@ def test_netting_csa_guards_and_mta():
 def test_cli_xva_portfolio(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--paths", "2048", "--steps",
                    "50", "--threshold", "0.005", "--mta", "0.001"])
@@ -532,7 +532,7 @@ def test_wwr_beta_zero_reduces_to_flat():
     """beta = 0 makes the pathwise default increments deterministic, so
     cva_wwr collapses to the flat-hazard cva (same sum, different fp
     association), and the calibrated survival curve IS the flat curve."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
+    from montecarlo.engine.exposure import netting_set_profile
 
     model, trades, n = _wwr_book()
     prof = netting_set_profile(model, trades, n, N_STEPS, T=T, seed=11,
@@ -549,7 +549,7 @@ def test_wwr_survival_calibrated_for_any_beta():
     """The Newton calibration pins the UNCONDITIONAL survival curve to the
     flat-hazard curve regardless of beta — the CDS curve is an input, not
     a model output.  Checked at a deliberately aggressive loading."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
+    from montecarlo.engine.exposure import netting_set_profile
 
     model, trades, n = _wwr_book()
     prof = netting_set_profile(model, trades, n, N_STEPS, T=T, seed=11,
@@ -565,7 +565,7 @@ def test_wwr_sign():
     """Payer swap: exposure increases in r.  beta > 0 concentrates default
     where r (and the exposure) is high -> cva_wwr > cva; beta < 0 is
     right-way.  The receiver side mirrors both inequalities."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
+    from montecarlo.engine.exposure import netting_set_profile
 
     for receiver in (False, True):
         model, trades, n = _wwr_book(receiver=receiver)
@@ -587,8 +587,8 @@ def test_wwr_numpy_oracle():
     (GBM forward book, flat discounting), same definition: per-date
     standardization, Newton-calibrated survival, pathwise
     (1-R) sum E[D V+ dPD].  Guards the JAX scan/fori machinery."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
-    from montecarlo_tpu.engine.simulate import simulate
+    from montecarlo.engine.exposure import netting_set_profile
+    from montecarlo.engine.simulate import simulate
 
     s0, r, sig, t_end, steps, n = 100.0, 0.03, 0.25, 1.0, 32, 4096
     beta, lam, rec, seed = 0.8, 0.02, 0.4, 17
@@ -630,7 +630,7 @@ def test_wwr_numpy_oracle():
 def test_cli_xva_portfolio_wwr(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "2048",
                    "--steps", "50", "--wwr-beta", "1.0"])
@@ -646,7 +646,7 @@ def test_kva_deterministic_exposure_closed_form():
     """A constant-value trade under flat-rate discounting makes every
     factor of the KVA integral deterministic (EEPE = c, P(0,t) = e^{-rt}),
     so MC must reproduce the closed-form capital integral exactly."""
-    from montecarlo_tpu.engine.exposure import netting_set_profile
+    from montecarlo.engine.exposure import netting_set_profile
 
     c, r, lam_c, lam_o = 3.0, 0.03, 0.02, 0.01
     cost, ratio = 0.10, 0.112
@@ -675,7 +675,7 @@ def test_kva_off_by_default_and_collateral_limits():
     (A lagged CSA need NOT reduce KVA on a mostly-negative book: our own
     posted collateral against the MPoR-old mark creates gap exposure —
     that direction is deliberately not asserted.)"""
-    from montecarlo_tpu.engine.exposure import CSA, netting_set_profile
+    from montecarlo.engine.exposure import CSA, netting_set_profile
 
     model = Vasicek.create(R0, KAPPA, THETA, SIG, T / N_STEPS,
                            dtype=jnp.float64)
@@ -697,7 +697,7 @@ def test_kva_off_by_default_and_collateral_limits():
 def test_cli_xva_portfolio_kva(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "2048",
                    "--steps", "50", "--kva-cost", "0.1"])

@@ -16,12 +16,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.dispatch import terminal_prices
-from montecarlo_tpu.engine.exposure import CSA, swap_value_fn
-from montecarlo_tpu.engine.streaming import (streaming_estimate,
+from montecarlo.engine.dispatch import terminal_prices
+from montecarlo.engine.exposure import CSA, swap_value_fn
+from montecarlo.engine.streaming import (streaming_estimate,
                                              streaming_netting_profile)
-from montecarlo_tpu.processes import GBM, Vasicek
-from montecarlo_tpu.stats.welford import moments_from_array, moments_reduce
+from montecarlo.processes import GBM, Vasicek
+from montecarlo.stats.welford import moments_from_array, moments_reduce
 
 TOTAL, CHUNK, BLOCK = 8192, 2048, 256
 N_STEPS, SEED = 16, 9
@@ -93,8 +93,8 @@ def test_lost_chunk_replayed_from_counters_netting(tmp_path):
     profile."""
     from functools import partial
 
-    from montecarlo_tpu.engine.streaming import NettingStreamState
-    from montecarlo_tpu.parallel.sharded import netting_block_stats
+    from montecarlo.engine.streaming import NettingStreamState
+    from montecarlo.parallel.sharded import netting_block_stats
 
     model, trades = _netting_book()
     ck = str(tmp_path / "net.npz")

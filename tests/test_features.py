@@ -9,8 +9,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from montecarlo_tpu.data.synthetic import generate_ohlcv
-from montecarlo_tpu.quant import compute_features, features_to_numpy
+from montecarlo.data.synthetic import generate_ohlcv
+from montecarlo.quant import compute_features, features_to_numpy
 
 
 def _pandas_oracle(ohlcv: dict) -> pd.DataFrame:

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from montecarlo_tpu.data.fetch import _featurize
-from montecarlo_tpu.data.synthetic import generate_ohlcv
-from montecarlo_tpu.quant.features import features_to_numpy
+from montecarlo.data.fetch import _featurize
+from montecarlo.data.synthetic import generate_ohlcv
+from montecarlo.quant.features import features_to_numpy
 
 
 def _ohlcv_with_dates(n=400, seed=3):

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.functionals import (
+from montecarlo.engine import simulate
+from montecarlo.engine.functionals import (
     ARITH_MEAN,
     GEO_MEAN,
     RUNNING_MAX,
@@ -16,9 +16,9 @@ from montecarlo_tpu.engine.functionals import (
     simulate_functionals,
     up_and_out_call,
 )
-from montecarlo_tpu.engine.implied_vol import implied_vol_call
-from montecarlo_tpu.engine.payoffs import black_scholes_call
-from montecarlo_tpu.processes import GBM
+from montecarlo.engine.implied_vol import implied_vol_call
+from montecarlo.engine.payoffs import black_scholes_call
+from montecarlo.processes import GBM
 
 S0, R, SIGMA, STRIKE = 100.0, 0.03, 0.2, 100.0
 N_STEPS = 64
@@ -93,8 +93,8 @@ def test_implied_vol_rejects_arbitrage():
 def test_implied_vol_batches_over_strike():
     """Scalar price with a batched strike axis must broadcast (the Newton
     carry used to be seeded at price.shape and crash; review finding r2)."""
-    from montecarlo_tpu.engine import black_scholes_call
-    from montecarlo_tpu.engine.implied_vol import implied_vol_call
+    from montecarlo.engine import black_scholes_call
+    from montecarlo.engine.implied_vol import implied_vol_call
 
     strikes = jnp.asarray([90.0, 100.0, 110.0])
     prices = black_scholes_call(100.0, strikes, 0.03, 0.25, 1.0)
@@ -113,8 +113,8 @@ def test_cliquet_sum_uncapped_matches_closed_form():
     """With no collar, E[sum of period returns] = n_periods*(e^{mu*P*dt}-1)
     under GBM, and the capped leg is bounded by n*cap and below the
     uncapped leg (Jensen-free pathwise bounds)."""
-    from montecarlo_tpu.engine import cliquet_sum, simulate_functionals
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.engine import cliquet_sum, simulate_functionals
+    from montecarlo.processes import GBM
 
     mu, dt, period, n_steps = 0.06, 1 / 48, 12, 48  # 4 quarterly resets
     proc = GBM.create(s0=100.0, mu=mu, sigma=0.25, dt=dt,
@@ -139,8 +139,8 @@ def test_autocallable_limits_and_price():
     calls at the first observation; trigger unreachable + barrier
     unbreachable -> pure discounted notional; and the generic price sits
     between the PDI-floor and the always-call ceiling."""
-    from montecarlo_tpu.engine import autocallable, simulate_functionals
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.engine import autocallable, simulate_functionals
+    from montecarlo.processes import GBM
 
     r, dt, period, n_steps = 0.03, 1 / 48, 12, 48
     proc = GBM.create(s0=100.0, mu=r, sigma=0.25, dt=dt, dtype=jnp.float64)
@@ -169,7 +169,7 @@ def test_autocallable_limits_and_price():
 def test_autocallable_pdi_capped_at_notional():
     """A breached path that recovers above s0 still pays at most notional
     (the capital leg is short a PUT, not long the stock; review r2)."""
-    from montecarlo_tpu.engine import autocallable
+    from montecarlo.engine import autocallable
 
     f = autocallable(period=2, trigger=150.0, coupon=0.05, r_dt=0.0,
                      pdi_barrier=80.0, s0=100.0)
@@ -191,9 +191,9 @@ def test_worst_of_autocallable_degenerates_to_single():
     (MultiGBM with one asset draws the same stream as GBM)."""
     import numpy as np
 
-    from montecarlo_tpu.engine import (autocallable, simulate_functionals,
+    from montecarlo.engine import (autocallable, simulate_functionals,
                                        worst_of_autocallable)
-    from montecarlo_tpu.processes import GBM, MultiGBM
+    from montecarlo.processes import GBM, MultiGBM
 
     s0, r, sig = 100.0, 0.03, 0.25
     period, n_obs = 16, 4
@@ -219,9 +219,9 @@ def test_worst_of_autocallable_orderings():
     near-perfect correlation -> the single-asset price."""
     import numpy as np
 
-    from montecarlo_tpu.engine import (mc_estimate, simulate_functionals,
+    from montecarlo.engine import (mc_estimate, simulate_functionals,
                                        worst_of_autocallable)
-    from montecarlo_tpu.processes import MultiGBM
+    from montecarlo.processes import MultiGBM
 
     s0, r, sig = 100.0, 0.03, 0.25
     period, n_obs = 16, 4
@@ -250,7 +250,7 @@ def test_worst_of_autocallable_orderings():
 def test_cli_note_autocall_and_cliquet(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["note", "--n-assets", "3", "--paths", "8192",
                    "--steps", "64", "--observations", "4"])
@@ -271,7 +271,7 @@ def test_autocallable_traced_finalize_clear_error():
     import jax
     import pytest
 
-    from montecarlo_tpu.engine.functionals import autocallable
+    from montecarlo.engine.functionals import autocallable
 
     fn = autocallable(period=4, trigger=1.0, coupon=0.02, r_dt=0.0,
                       pdi_barrier=0.7, s0=1.0)

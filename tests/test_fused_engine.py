@@ -1,11 +1,12 @@
-"""Generic fused Pallas engine vs the scan engine (interpret mode)."""
+"""Generic fused path kernel (Pallas through Triton) vs the scan engine,
+in interpret mode."""
 
 import numpy as np
 import pytest
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import GBM, GARCHBootstrap, Heston
+from montecarlo.engine import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import GBM, GARCHBootstrap, Heston
 
 N = 128 * 128
 
@@ -27,7 +28,7 @@ def test_fused_matches_scan_engine_bitwise(name, n_steps):
     proc = _procs()[name]
     ref = np.asarray(simulate(proc, N, n_steps, seed=5))
     ker = np.asarray(fused_terminal_pallas(proc, N, n_steps, seed=5,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     if name == "heston":
         # The grouped step increment ((mu - v/2)dt + sqrt(v dt) z) gives
         # XLA an FMA-contraction choice it resolves differently between
@@ -41,9 +42,9 @@ def test_fused_matches_scan_engine_bitwise(name, n_steps):
 def test_fused_path_offset_invariance():
     proc = _procs()["garch"]
     full = np.asarray(fused_terminal_pallas(proc, N, 8, seed=3,
-                                            block_rows=64, interpret=True))
+                                            block=128, interpret=True))
     halves = [np.asarray(fused_terminal_pallas(
-        proc, N // 2, 8, seed=3, path_offset=o, block_rows=64,
+        proc, N // 2, 8, seed=3, path_offset=o, block=128,
         interpret=True)) for o in (0, N // 2)]
     np.testing.assert_array_equal(full, np.concatenate(halves))
 
@@ -63,13 +64,13 @@ def test_draws_pair_matches_draws():
 
 
 def test_fused_antithetic_matches_scan_sampler():
-    from montecarlo_tpu.samplers import AntitheticSampler
+    from montecarlo.samplers import AntitheticSampler
 
     proc = _procs()["gbm"]
     ref = np.asarray(simulate(proc, N, 9, seed=5,
                               sampler=AntitheticSampler()))
     ker = np.asarray(fused_terminal_pallas(proc, N, 9, seed=5,
-                                           block_rows=128, interpret=True,
+                                           block=256, interpret=True,
                                            antithetic=True))
     np.testing.assert_array_equal(ker, ref)
 
@@ -78,7 +79,7 @@ def test_basket_fused_matches_multigbm():
     """BasketGBM (tuple state, unrolled Cholesky) vs MultiGBM (matmul)."""
     import jax.numpy as jnp
 
-    from montecarlo_tpu.processes import BasketGBM, MultiGBM
+    from montecarlo.processes import BasketGBM, MultiGBM
 
     corr = np.array([[1.0, 0.5, 0.2], [0.5, 1.0, 0.4], [0.2, 0.4, 1.0]])
     kw = dict(s0=[100.0, 50.0, 75.0], mu=[0.03, 0.02, 0.04],
@@ -93,30 +94,30 @@ def test_basket_fused_matches_multigbm():
     np.testing.assert_allclose(b_scan, m_term @ w, rtol=2e-5)
 
     b_fused = np.asarray(fused_terminal_pallas(basket, n, T, seed=5,
-                                               block_rows=128,
+                                               block=256,
                                                interpret=True))
     np.testing.assert_array_equal(b_fused, b_scan)
 
 
 class TestFusedBlockMoments:
-    """Payoff+stats fused output (the terminal array never leaves VMEM)."""
+    """Payoff+stats fused output (the terminal array is never written)."""
 
     def _proc(self):
-        from montecarlo_tpu.processes import GBM
+        from montecarlo.processes import GBM
         return GBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=1.0 / 252.0)
 
     def test_matches_materializing_path(self):
         import jax.numpy as jnp
-        from montecarlo_tpu.engine.simulate import simulate
-        from montecarlo_tpu.ops.fused_engine import fused_block_moments_pallas
-        from montecarlo_tpu.stats.welford import (moments_from_array,
+        from montecarlo.engine.simulate import simulate
+        from montecarlo.ops.fused_engine import fused_block_moments_pallas
+        from montecarlo.stats.welford import (moments_from_array,
                                                   moments_reduce, std_error)
 
         proc = self._proc()
         payoff = lambda s: jnp.maximum(s - 105.0, 0.0)
         n = 32768
         blocks = fused_block_moments_pallas(
-            proc, payoff, n, 16, seed=9, block_rows=64, interpret=True)
+            proc, payoff, n, 16, seed=9, block=128, interpret=True)
         assert blocks.count.shape == (n // 4096,)
         assert float(jnp.sum(blocks.count)) == n
 
@@ -139,30 +140,114 @@ class TestFusedBlockMoments:
         half via path_offset yields the same states as the full run."""
         import jax.numpy as jnp
         import numpy as np
-        from montecarlo_tpu.ops.fused_engine import fused_block_moments_pallas
+        from montecarlo.ops.fused_engine import fused_block_moments_pallas
 
         proc = self._proc()
         payoff = lambda s: jnp.maximum(s - 105.0, 0.0)
         full = fused_block_moments_pallas(
-            proc, payoff, 16384, 8, seed=4, block_rows=64, interpret=True)
+            proc, payoff, 16384, 8, seed=4, block=128, interpret=True)
         half2 = fused_block_moments_pallas(
-            proc, payoff, 8192, 8, seed=4, path_offset=8192, block_rows=64,
+            proc, payoff, 8192, 8, seed=4, path_offset=8192, block=128,
             interpret=True)
         for a, b in zip(full, half2):
             np.testing.assert_array_equal(np.asarray(a)[2:], np.asarray(b))
 
     def test_antithetic_mode(self):
         import jax.numpy as jnp
-        from montecarlo_tpu.ops.fused_engine import fused_block_moments_pallas
-        from montecarlo_tpu.engine.simulate import simulate
-        from montecarlo_tpu.samplers import AntitheticSampler
-        from montecarlo_tpu.stats.welford import moments_reduce
+        from montecarlo.ops.fused_engine import fused_block_moments_pallas
+        from montecarlo.engine.simulate import simulate
+        from montecarlo.samplers import AntitheticSampler
+        from montecarlo.stats.welford import moments_reduce
 
         proc = self._proc()
         payoff = lambda s: s  # identity: antithetic pairs cancel variance
         blocks = fused_block_moments_pallas(
-            proc, payoff, 16384, 8, seed=4, block_rows=64, interpret=True,
+            proc, payoff, 16384, 8, seed=4, block=128, interpret=True,
             antithetic=True)
         tot = moments_reduce(blocks)
         term = simulate(proc, 16384, 8, seed=4, sampler=AntitheticSampler())
         assert abs(float(tot.mean) - float(jnp.mean(term))) < 1e-5
+
+
+# --- the Triton program's shape rules (interpret mode) ----------------------
+
+@pytest.mark.parametrize("block", [128, 256, 512, 1024])
+def test_block_sizes_bitwise_equal_scan(block):
+    """Any power-of-two block gives the scan engine's paths bitwise."""
+    proc = _procs()["garch"]
+    ref = np.asarray(simulate(proc, 4096, 6, seed=2))
+    ker = np.asarray(fused_terminal_pallas(proc, 4096, 6, seed=2,
+                                           block=block, interpret=True))
+    np.testing.assert_array_equal(ker, ref)
+
+
+@pytest.mark.parametrize("n_paths", [1, 255, 257, 1000])
+def test_path_count_padding(n_paths):
+    """Path counts that are not a whole number of blocks are padded up and
+    cut back; the kept paths are the scan engine's paths."""
+    proc = _procs()["gbm"]
+    ref = np.asarray(simulate(proc, n_paths, 5, seed=4))
+    ker = np.asarray(fused_terminal_pallas(proc, n_paths, 5, seed=4,
+                                           block=256, interpret=True))
+    assert ker.shape == (n_paths,)
+    np.testing.assert_array_equal(ker, ref)
+
+
+@pytest.mark.parametrize("block", [0, 64, 192, 300])
+def test_block_must_be_power_of_two(block):
+    with pytest.raises(ValueError, match="power of two"):
+        fused_terminal_pallas(_procs()["gbm"], 1024, 4, seed=0, block=block,
+                              interpret=True)
+
+
+def test_block_moments_independent_of_block_size():
+    """Moments reduce per fixed 128-path row, so the block states do not
+    depend on the program's block size (determinism contract)."""
+    import jax.numpy as jnp
+
+    from montecarlo.ops.fused_engine import fused_block_moments_pallas
+
+    payoff = lambda s: jnp.maximum(s - 100.0, 0.0)
+    runs = [fused_block_moments_pallas(_procs()["heston"], payoff, 8192, 6,
+                                       seed=1, block=b, interpret=True)
+            for b in (128, 512)]
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("shape,index", [
+    ((10,), 3),
+    ((10,), -1),
+    ((10,), 25),                  # clamped like an XLA gather
+    ((4, 5), (2, 3)),
+    ((4, 5), (3, 7)),             # column past the row: clamped flat
+    ((3, 4, 5), (1, 2, 3)),
+])
+def test_kernel_table_matches_array_indexing(shape, index):
+    """KernelTable (an array leaf inside the kernel) reads what indexing
+    the flat array in row-major order reads, clamped to the buffer."""
+    from montecarlo.ops.fused_engine import KernelTable
+
+    arr = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    table = KernelTable(arr.reshape(-1), shape)
+    idx = index if isinstance(index, tuple) else (index,)
+    flat = sum(i * int(np.prod(shape[k + 1:])) for k, i in enumerate(idx))
+    if len(idx) == 1 and idx[0] < 0:
+        flat = idx[0] + shape[0]
+    expected = arr.reshape(-1)[min(max(flat, 0), arr.size - 1)]
+    assert float(table[index]) == float(expected)
+
+
+def test_kernel_table_sub_view_and_gather():
+    import jax.numpy as jnp
+
+    from montecarlo.ops.fused_engine import KernelTable
+
+    arr = np.arange(24, dtype=np.float32).reshape(4, 6)
+    table = KernelTable(arr.reshape(-1), arr.shape).astype(jnp.float32)
+    row = table[2]
+    assert row.shape == (6,) and row.ndim == 1
+    idx = jnp.asarray([0, 5, 3], jnp.int32)
+    np.testing.assert_array_equal(np.asarray(row[idx]), arr[2, [0, 5, 3]])
+    np.testing.assert_array_equal(np.asarray(table[1, idx]),
+                                  arr[1, [0, 5, 3]])

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine.functionals import (
+from montecarlo.engine.functionals import (
     ARITH_MEAN,
     GEO_MEAN,
     RUNNING_MAX,
@@ -12,9 +12,9 @@ from montecarlo_tpu.engine.functionals import (
     _simulate_functionals,
     trapezoid_integral,
 )
-from montecarlo_tpu.ops.fused_engine import fused_functionals_pallas
-from montecarlo_tpu.processes import GBM, Heston, Vasicek
-from montecarlo_tpu.samplers import AntitheticSampler
+from montecarlo.ops.fused_engine import fused_functionals_pallas
+from montecarlo.processes import GBM, Heston, Vasicek
+from montecarlo.samplers import AntitheticSampler
 
 N = 128 * 128
 STEPS = 17  # odd on purpose: exercises the half-pair tail

@@ -1,4 +1,4 @@
-"""Device-Sobol draws inside the fused Pallas kernels (interpret mode):
+"""Device-Sobol draws inside the fused path kernel (interpret mode):
 parity with the scan engine, table-read equivalence, dispatch eligibility,
 and the ndtri32 approximation quality."""
 
@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.functionals import (ARITH_MEAN, RUNNING_MAX,
+from montecarlo.engine import simulate
+from montecarlo.engine.functionals import (ARITH_MEAN, RUNNING_MAX,
                                                _simulate_functionals)
-from montecarlo_tpu.ops.fused_engine import (fused_functionals_pallas,
+from montecarlo.ops.fused_engine import (fused_functionals_pallas,
                                              fused_terminal_pallas)
-from montecarlo_tpu.processes import GBM, Heston
-from montecarlo_tpu.rng.sobol import (SobolDeviceSampler, _scrambled_uniform,
+from montecarlo.processes import GBM, Heston
+from montecarlo.rng.sobol import (SobolDeviceSampler, _scrambled_uniform,
                                       _shifted_normal, direction_numbers,
                                       lms_scramble, sobol_bits)
 
@@ -34,10 +34,10 @@ def test_fused_sobol_matches_scan_engine(name, n_draws, n_steps):
     sampler = SobolDeviceSampler.create(n_steps + 1, n_draws)
     ref = np.asarray(simulate(proc, N, n_steps, seed=5, sampler=sampler))
     ker = np.asarray(fused_terminal_pallas(
-        proc, N, n_steps, seed=5, block_rows=128, interpret=True,
+        proc, N, n_steps, seed=5, block=256, interpret=True,
         sampler=sampler))
-    # Same values read through one-hot vs dynamic-index table loads; only
-    # FMA re-association can differ (same ULP budget as the rate processes).
+    # Same values read through indexed loads vs gathers; only FMA
+    # re-association can differ (same ULP budget as the rate processes).
     np.testing.assert_allclose(ker, ref, rtol=2e-6)
 
 
@@ -49,7 +49,7 @@ def test_fused_sobol_functionals_match_scan():
     ref = _simulate_functionals(proc, N, n_steps, 7, 0, sampler,
                                 jnp.float32, 0, items)
     ker = fused_functionals_pallas(proc, N, n_steps, seed=7,
-                                   functional_items=items, block_rows=128,
+                                   functional_items=items, block=256,
                                    interpret=True, sampler=sampler)
     for key in ("terminal", "avg", "mx"):
         np.testing.assert_allclose(np.asarray(ker[key]),
@@ -61,15 +61,15 @@ def test_fused_sobol_path_offset_invariance():
     proc = _procs()["gbm"]
     sampler = SobolDeviceSampler.create(8, 1)
     full = np.asarray(fused_terminal_pallas(
-        proc, N, 8, seed=3, block_rows=64, interpret=True, sampler=sampler))
+        proc, N, 8, seed=3, block=128, interpret=True, sampler=sampler))
     halves = [np.asarray(fused_terminal_pallas(
-        proc, N // 2, 8, seed=3, path_offset=o, block_rows=64,
+        proc, N // 2, 8, seed=3, path_offset=o, block=128,
         interpret=True, sampler=sampler)) for o in (0, N // 2)]
     np.testing.assert_array_equal(full, np.concatenate(halves))
 
 
 def test_dispatch_eligibility():
-    from montecarlo_tpu.engine.dispatch import _fusable_sampler
+    from montecarlo.engine.dispatch import _fusable_sampler
 
     gbm = _procs()["gbm"]
     heston = _procs()["heston"]
@@ -92,7 +92,7 @@ def test_antithetic_plus_sampler_rejected():
 def test_ndtri32_accuracy():
     from scipy.special import ndtri as sp_ndtri
 
-    from montecarlo_tpu.rng.normal import ndtri32
+    from montecarlo.rng.normal import ndtri32
 
     u = np.concatenate([np.linspace(2.0**-24, 1 - 2.0**-24, 30001),
                         2.0 ** -np.arange(2, 24.0),
@@ -174,7 +174,7 @@ def test_owen_scramble_decorrelates_replicates():
 def test_short_table_rejected_everywhere():
     """A Sobol table smaller than n_steps*n_draws used to clamp the gather
     and silently reuse the last dimension — now every engine rejects it."""
-    from montecarlo_tpu.rng.sobol import SobolBridgeDeviceSampler
+    from montecarlo.rng.sobol import SobolBridgeDeviceSampler
 
     proc = _procs()["gbm"]
     small = SobolDeviceSampler.create(8, 1)
@@ -191,82 +191,10 @@ def test_short_table_rejected_everywhere():
 def test_plain_sampler_is_fusable():
     """The CLI's explicit --sampler plain default must ride the fused
     kernel exactly like sampler=None (identical pass-through streams)."""
-    from montecarlo_tpu.engine.dispatch import (_fusable_sampler,
+    from montecarlo.engine.dispatch import (_fusable_sampler,
                                                 _kernel_sampler)
-    from montecarlo_tpu.samplers import PlainSampler
+    from montecarlo.samplers import PlainSampler
 
     gbm = _procs()["gbm"]
     assert _fusable_sampler(PlainSampler(), gbm, 252)
     assert _kernel_sampler(PlainSampler()) is None
-
-
-def test_bridge_kernel_sampler_matches_scan_engine_bitwise():
-    """The statically-scheduled bridge sampler (unrolled kernel, tables as
-    immediates, normals register-cached) must reproduce the scan engine
-    with the array-table Device variant BITWISE in interpret mode (same
-    sv, same shifts, same padded accumulation order, phase-2 combination
-    op-for-op identical to the scan sum)."""
-    from montecarlo_tpu.rng.sobol import (SobolBridgeDeviceSampler,
-                                          SobolBridgeKernelSampler)
-
-    proc = _procs()["gbm"]
-    for n_steps in (8, 13, 16):
-        dev = SobolBridgeDeviceSampler.create(n_steps, scramble_seed=3)
-        ker = SobolBridgeKernelSampler.create(n_steps, scramble_seed=3)
-        ref = np.asarray(simulate(proc, N, n_steps, seed=5, sampler=dev))
-        out = np.asarray(fused_terminal_pallas(
-            proc, N, n_steps, seed=5, block_rows=128, interpret=True,
-            sampler=ker))
-        np.testing.assert_array_equal(out, ref, err_msg=f"T={n_steps}")
-        # The kernel sampler's scan-path delegate IS the same program as
-        # the Device variant — bitwise.
-        out2 = np.asarray(simulate(proc, N, n_steps, seed=5, sampler=ker))
-        np.testing.assert_array_equal(out2, ref)
-
-
-def test_bridge_kernel_functionals_match_scan():
-    from montecarlo_tpu.rng.sobol import (SobolBridgeDeviceSampler,
-                                          SobolBridgeKernelSampler)
-
-    proc = _procs()["gbm"]
-    n_steps = 16
-    dev = SobolBridgeDeviceSampler.create(n_steps, scramble_seed=1)
-    ker = SobolBridgeKernelSampler.create(n_steps, scramble_seed=1)
-    items = (("avg", ARITH_MEAN), ("mx", RUNNING_MAX))
-    ref = _simulate_functionals(proc, N, n_steps, 7, 0, dev,
-                                jnp.float32, 0, items)
-    out = fused_functionals_pallas(proc, N, n_steps, seed=7,
-                                   functional_items=items, block_rows=128,
-                                   interpret=True, sampler=ker)
-    for key in ("terminal", "avg", "mx"):
-        np.testing.assert_array_equal(np.asarray(out[key]),
-                                      np.asarray(ref[key]), err_msg=key)
-
-
-def test_bridge_kernel_dispatch_eligibility():
-    """Dispatch gate: eligible for single-draw processes with a covering
-    plan; rejected for multi-draw (Heston) and undersized plans."""
-    from montecarlo_tpu.engine.dispatch import _fusable_sampler
-    from montecarlo_tpu.rng.sobol import SobolBridgeKernelSampler
-
-    ker = SobolBridgeKernelSampler.create(16)
-    assert _fusable_sampler(ker, _procs()["gbm"], 16)
-    assert _fusable_sampler(ker, _procs()["gbm"], 8)
-    assert not _fusable_sampler(ker, _procs()["gbm"], 32)  # plan too short
-    assert not _fusable_sampler(ker, _procs()["heston"], 8)  # 2 draws
-    import pytest as _pytest
-
-    with _pytest.raises(ValueError, match="built for 16 steps"):
-        simulate(_procs()["gbm"], 256, 32, seed=1, sampler=ker)
-
-
-def test_bridge_kernel_scratch_caps_block_rows():
-    """Dispatch must shrink block_rows so the T x block_rows scratch fits
-    the VMEM budget at long horizons."""
-    from montecarlo_tpu.engine.dispatch import _scratch_max_rows
-    from montecarlo_tpu.rng.sobol import SobolBridgeKernelSampler
-
-    ker = SobolBridgeKernelSampler.create(16)
-    assert _scratch_max_rows(ker) >= 128
-    big = SobolBridgeKernelSampler.create(1024)
-    assert _scratch_max_rows(big) <= 8

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.bermudan import vasicek_swaption_jamshidian
-from montecarlo_tpu.engine.exposure import netting_set_profile
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.processes.g2pp import (G2PP, g2pp_bond,
+from montecarlo.engine.bermudan import vasicek_swaption_jamshidian
+from montecarlo.engine.exposure import netting_set_profile
+from montecarlo.engine.simulate import simulate
+from montecarlo.processes.g2pp import (G2PP, g2pp_bond,
                                            g2pp_swap_value_fn,
                                            g2pp_swaption, g2pp_v, g2pp_zcb)
 
@@ -53,7 +53,7 @@ def test_mc_bond_matches_closed_form():
     """Pathwise-discounted MC bond vs the affine P(0,T) (V(tau) per
     Brigo–Mercurio 4.10) — only the trapezoid discount integral is
     discretized."""
-    from montecarlo_tpu.engine.rates import zcb_price_mc
+    from montecarlo.engine.rates import zcb_price_mc
 
     T = 2.0
     m = _model(T / 64)
@@ -202,7 +202,7 @@ def test_multistate_netting_im_mva_wwr_run():
 
 
 def test_exposure_profile_rejects_multistate():
-    from montecarlo_tpu.engine.exposure import exposure_profile
+    from montecarlo.engine.exposure import exposure_profile
 
     m = _model(0.05)
     with pytest.raises(TypeError, match="multi-state"):
@@ -215,8 +215,8 @@ def test_sharded_multistate_bitwise_and_matches_unsharded():
     — bitwise mesh-shape-invariant, matching the unsharded engine to
     fp-reassociation noise, and bitwise-shared means with the streaming
     engine (same `netting_block_stats` unit)."""
-    from montecarlo_tpu.engine.streaming import streaming_netting_profile
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.engine.streaming import streaming_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     T, n_steps, n, block = 2.0, 16, 4096, 256
     m = _model(T / n_steps, rho=-0.5)
@@ -259,18 +259,18 @@ def test_fused_kernel_parity_interpret():
     interpret-mode kernel vs the scan engine — ULP-tight like the other
     rate processes (the OU step chain is an FMA-contraction candidate,
     DEVNOTES determinism note)."""
-    from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
+    from montecarlo.ops.fused_engine import fused_terminal_pallas
 
     m = _model(1 / 64, dtype=jnp.float32)
     n = 128 * 128
     ref = np.asarray(simulate(m, n, 16, seed=5))
     ker = np.asarray(fused_terminal_pallas(m, n, 16, seed=5,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     np.testing.assert_allclose(ker, ref, rtol=2e-6, atol=2e-8)
 
 
 def test_cli_bond_g2pp(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["bond", "--model", "g2pp", "--paths", "8192",
                    "--steps", "32", "--maturity", "1.0"])
@@ -290,9 +290,9 @@ def test_multistate_greeks_allocations_portfolio():
     EMPTY — pathwise greeks (unsharded AND sharded, bitwise
     mesh-invariant), Euler trade allocations (exact additivity), and the
     multi-counterparty portfolio engine all run on a G2++ book."""
-    from montecarlo_tpu.engine.exposure import (portfolio_xva, xva_greeks,
+    from montecarlo.engine.exposure import (portfolio_xva, xva_greeks,
                                                 xva_trade_allocations)
-    from montecarlo_tpu.parallel import make_mesh, sharded_xva_greeks
+    from montecarlo.parallel import make_mesh, sharded_xva_greeks
 
     def build(p):
         m = G2PP.create(p["r0"], A, p["sigma"], B, ET, -0.5, 0.25,
@@ -343,7 +343,7 @@ def test_multistate_greeks_allocations_portfolio():
 
 
 def test_cli_xva_g2pp(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--underlying", "g2pp",
                    "--no-csa", "--paths", "2048", "--steps", "20",
@@ -372,7 +372,7 @@ def test_cli_xva_g2pp_greeks_and_allocate(capsys):
     the duplicate-im_spread TypeError the enablement drive caught."""
     import json as _json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--underlying", "g2pp",
                    "--no-csa", "--paths", "1024", "--steps", "8",

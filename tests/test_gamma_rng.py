@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.rng.gamma import (expneg_wide32, gamma1p32,
+from montecarlo.rng.gamma import (expneg_wide32, gamma1p32,
                                       gamma_from_uniforms32,
                                       gamma_icdf_boost32)
-from montecarlo_tpu.rng.normal import uniform_draw
+from montecarlo.rng.normal import uniform_draw
 
 
 def test_gamma1p32_vs_scipy():
@@ -123,7 +123,7 @@ def test_gamma_table_vs_scipy(b):
     a quantile drawn with probability ~1e-7 — invisible to MC)."""
     from scipy.special import gammainccinv, gammaincinv
 
-    from montecarlo_tpu.rng.gamma import (gamma_from_uniforms_table32,
+    from montecarlo.rng.gamma import (gamma_from_uniforms_table32,
                                           gamma_icdf_resid_table64)
 
     z0, dz, resid, dresid = gamma_icdf_resid_table64(b)
@@ -150,10 +150,10 @@ def test_gamma_table_vs_scipy(b):
 
 
 def test_gamma_table_matches_newton_in_block_layout():
-    """(rows, 128) kernel-block evaluation equals the 1-D evaluation
-    bitwise (the GARCH-style row-masked gather), and both agree with the
+    """A 2-D block of paths evaluates bitwise like the flat 1-D array
+    (table reads are plain gathers either way), and both agree with the
     Newton path to the documented tolerance."""
-    from montecarlo_tpu.rng.gamma import (gamma_from_uniforms_table32,
+    from montecarlo.rng.gamma import (gamma_from_uniforms_table32,
                                           gamma_icdf_resid_table64)
 
     a = 0.04

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from montecarlo_tpu.processes.garch_fit import fit_garch
+from montecarlo.processes.garch_fit import fit_garch
 
 
 def _simulate_garch(omega, alpha, beta, n, seed):
@@ -37,8 +37,8 @@ def test_stationarity_constraints_hold():
 
 
 def test_fitted_params_drive_the_process():
-    from montecarlo_tpu.engine import simulate
-    from montecarlo_tpu.processes import GARCHBootstrap
+    from montecarlo.engine import simulate
+    from montecarlo.processes import GARCHBootstrap
 
     r = _simulate_garch(2e-5, 0.1, 0.85, 3000, seed=2)
     est = fit_garch(r, n_iters=400)

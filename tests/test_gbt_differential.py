@@ -21,7 +21,7 @@ import pytest
 
 sklearn_ensemble = pytest.importorskip("sklearn.ensemble")
 
-from montecarlo_tpu.ml.gbt import (  # noqa: E402
+from montecarlo.ml.gbt import (  # noqa: E402
     GBTConfig,
     gbt_feature_importance,
     gbt_fit,

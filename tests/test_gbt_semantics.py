@@ -18,7 +18,7 @@ with min_child_weight lower-bounding each child's hessian sum
 import numpy as np
 import pytest
 
-from montecarlo_tpu.ml.gbt import (
+from montecarlo.ml.gbt import (
     GBTConfig,
     N_BINS,
     bin_features,

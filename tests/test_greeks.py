@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.greeks import (
+from montecarlo.engine.greeks import (
     black_scholes_delta,
     black_scholes_vega,
     price_and_greeks,
 )
-from montecarlo_tpu.engine import black_scholes_call, european_call
-from montecarlo_tpu.processes import GBM, Heston
+from montecarlo.engine import black_scholes_call, european_call
+from montecarlo.processes import GBM, Heston
 
 S0, R, SIGMA, STRIKE = 100.0, 0.03, 0.2, 105.0
 N_STEPS = 64
@@ -63,7 +63,7 @@ def test_lr_greeks_digital_call():
     give zero gradients almost everywhere here)."""
     from jax.scipy.stats import norm as jnorm
 
-    from montecarlo_tpu.engine.greeks import lr_greeks_gbm
+    from montecarlo.engine.greeks import lr_greeks_gbm
 
     proc = GBM.create(s0=S0, mu=R, sigma=SIGMA, dt=1 / 252)
     n = 1 << 18
@@ -92,7 +92,7 @@ def test_lr_greeks_digital_call():
 def test_remat_greeks_match_plain():
     """jax.checkpoint'ed scan gives identical gradients with O(paths)
     residual memory (draws recompute from counters)."""
-    from montecarlo_tpu.engine.greeks import price_and_greeks
+    from montecarlo.engine.greeks import price_and_greeks
 
     proc = GBM.create(s0=S0, mu=R, sigma=SIGMA, dt=1 / 252)
     n = 1 << 12
@@ -110,7 +110,7 @@ def test_smoothed_digital_delta_close_to_lr():
     closed form) for a digital call — the process-agnostic fallback."""
     from scipy.stats import norm
 
-    from montecarlo_tpu.engine.greeks import smoothed_digital
+    from montecarlo.engine.greeks import smoothed_digital
 
     proc = GBM.create(s0=S0, mu=R, sigma=SIGMA, dt=1 / 252)
     disc = float(np.exp(-R * T))
@@ -128,7 +128,7 @@ def test_second_order_greeks_match_black_scholes():
     simulator with the kernel-smoothed call vs the BS closed forms."""
     from scipy.stats import norm
 
-    from montecarlo_tpu.engine.greeks import (second_order_greeks,
+    from montecarlo.engine.greeks import (second_order_greeks,
                                               smoothed_call)
 
     proc = GBM.create(s0=S0, mu=R, sigma=SIGMA, dt=T / N_STEPS,
@@ -163,7 +163,7 @@ def test_second_order_greeks_match_black_scholes():
 
 def test_pathwise_greeks_work_for_garch_bootstrap():
     """Integer leaves (n_table) must not break autodiff (allow_int)."""
-    from montecarlo_tpu.processes import GARCHBootstrap
+    from montecarlo.processes import GARCHBootstrap
 
     rets = np.random.default_rng(0).normal(0, 0.02, 300)
     proc = GARCHBootstrap.create(rets, s0=100.0, var0=4e-4)
@@ -181,7 +181,7 @@ def test_cli_greeks_mesh(capsys):
 
     import pytest
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["greeks", "--mesh", "2", "--paths", "9000",
                    "--steps", "16"])

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine.heston_analytic import (
+from montecarlo.engine.heston_analytic import (
     HestonParams,
     calibrate_heston,
     heston_call_cf,
@@ -64,8 +64,8 @@ def test_calibrate_to_implied_vols_recovers_surface():
     matches within a few vol bps."""
     import numpy as np
 
-    from montecarlo_tpu.engine.heston_analytic import calibrate_heston_to_ivs
-    from montecarlo_tpu.engine.implied_vol import implied_vol_call
+    from montecarlo.engine.heston_analytic import calibrate_heston_to_ivs
+    from montecarlo.engine.implied_vol import implied_vol_call
 
     strikes = jnp.asarray([80.0, 90.0, 100.0, 110.0, 120.0] * 2)
     mats = jnp.asarray([0.5] * 5 + [1.5] * 5)

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import netting_set_profile
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.processes import (HestonExposure,
+from montecarlo.engine.exposure import netting_set_profile
+from montecarlo.engine.simulate import simulate
+from montecarlo.processes import (HestonExposure,
                                       heston_forward_value_fn,
                                       heston_varswap_expected_total,
                                       heston_varswap_value_fn)
@@ -145,7 +145,7 @@ def test_sharded_bitwise_and_unsharded_parity():
     profile array and scalar bitwise across mesh shapes, and the means
     bitwise-match the unsharded engine at the same fixed block width
     (the determinism contract all multi-state underlyings share)."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     m = _model()
     fwd = heston_forward_value_fn(m, S0 * np.exp(R * T), T)
@@ -171,8 +171,8 @@ def test_streaming_matches_sharded():
     """Streaming (checkpoint/resume) means are bitwise the sharded
     engine's on the Heston book — the shared `netting_block_stats`
     contract."""
-    from montecarlo_tpu.engine.streaming import streaming_netting_profile
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.engine.streaming import streaming_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     m = _model()
     vs = heston_varswap_value_fn(m, _par(m), T, notional=5.0 * S0)
@@ -190,7 +190,7 @@ def test_streaming_matches_sharded():
 
 
 def test_cli_xva_heston(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     args = ["xva", "--portfolio", "--underlying", "heston", "--no-csa",
             "--paths", "1024", "--steps", "8", "--maturity", "1.0",

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine.heston_analytic import HestonParams, heston_call_cf
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import Heston, HestonQE
+from montecarlo.engine.heston_analytic import HestonParams, heston_call_cf
+from montecarlo.engine.simulate import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import Heston, HestonQE
 
 # Andersen (2008) case-like: Feller strongly violated
 # (2 kappa theta = 0.04 << xi^2 = 1), where Euler bias is worst.
@@ -110,7 +110,7 @@ def test_draws_pair_bitwise_matches_draws():
 
 
 def test_antithetic_is_unbiased_and_reduces_variance():
-    from montecarlo_tpu.samplers import AntitheticSampler
+    from montecarlo.samplers import AntitheticSampler
 
     proc = _qe(16, dtype=jnp.float32)
     n = 1 << 16
@@ -140,7 +140,7 @@ def test_fused_kernel_parity():
     n = 128 * 128
     ref = np.asarray(simulate(proc, n, 16, seed=5))
     ker = np.asarray(fused_terminal_pallas(proc, n, 16, seed=5,
-                                           block_rows=64, interpret=True))
+                                           block=128, interpret=True))
     np.testing.assert_allclose(ker, ref, rtol=1e-5, atol=0.0)
     assert np.mean(ker != ref) < 0.25  # ULP flips on a minority of paths
 
@@ -155,7 +155,7 @@ def test_create_validation():
 def test_cli_price_and_american(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     args = ["price", "--process", "heston-qe", "--paths", "16384",
             "--steps", "16", "--strike", "100", "--rate", "0.0",

@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.rates import vasicek_zcb
-from montecarlo_tpu.processes import (EquityVasicekHybrid,
+from montecarlo.engine import simulate
+from montecarlo.engine.rates import vasicek_zcb
+from montecarlo.processes import (EquityVasicekHybrid,
                                       hybrid_call_closed_form,
                                       hybrid_price_mc)
 
@@ -36,7 +36,7 @@ def test_call_matches_closed_form_any_step_count(n_steps):
 def test_rates_matter_vs_flat_gbm():
     """The hybrid premium over flat-rate BS is real at 5y (positive
     rate-equity variance contribution dominates here)."""
-    from montecarlo_tpu.engine import black_scholes_call
+    from montecarlo.engine import black_scholes_call
 
     T, k = 5.0, 110.0
     cf = hybrid_call_closed_form(S0, k, T, R0, KAP, TH, SR, SS, RHO)
@@ -89,7 +89,7 @@ def test_simulate_paths_mode_works():
 def test_cli_price_hybrid(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["price", "--process", "hybrid", "--maturity", "5",
                    "--strike", "110", "--steps", "8", "--paths", "32768",

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import netting_set_profile, \
+from montecarlo.engine.exposure import netting_set_profile, \
     swap_value_fn
-from montecarlo_tpu.engine.rates import vasicek_bond_from_rate, vasicek_zcb
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.processes import GBM, EquityVasicekHybrid, Vasicek
+from montecarlo.engine.rates import vasicek_bond_from_rate, vasicek_zcb
+from montecarlo.engine.simulate import simulate
+from montecarlo.processes import GBM, EquityVasicekHybrid, Vasicek
 
 T, N_STEPS, N = 2.0, 16, 16384
 R0, KAP, TH, SR, SS = 0.03, 0.8, 0.05, 0.015, 0.25
@@ -121,7 +121,7 @@ def test_sharded_hybrid_bitwise_and_matches_unsharded():
     """Cross-asset books at pod scale: the hybrid netting set through
     `sharded_netting_profile` — bitwise mesh-invariant, matching the
     unsharded engine, exact-integral discounting preserved per block."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     pay = np.arange(1, 5) * 0.5
     vas = Vasicek.create(R0, KAP, TH, SR, T / N_STEPS, dtype=jnp.float64)
@@ -149,7 +149,7 @@ def test_sharded_hybrid_bitwise_and_matches_unsharded():
 def test_book_var_multistate():
     """Desk VaR by full revaluation over the hybrid state (multi-state
     book_var plumbing): finite, positive, exact-discount horizon."""
-    from montecarlo_tpu.engine.exposure import book_var
+    from montecarlo.engine.exposure import book_var
 
     k_fwd = 100.0 / float(vasicek_zcb(R0, KAP, TH, SR, T))
     var_steps = 8
@@ -166,7 +166,7 @@ def test_book_var_multistate():
 
 
 def test_cli_xva_hybrid(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--underlying", "hybrid",
                    "--no-csa", "--paths", "2048", "--steps", "16",
@@ -184,7 +184,7 @@ def test_cli_xva_hybrid_greeks_counterparties(capsys):
     """Round 5: the multi-state CLI guard is gone — pathwise xVA greeks
     (d cva/d s0 AND d cva/d r0 through the joint transition) and the
     multi-counterparty split run on the cross-asset hybrid book."""
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--underlying", "hybrid",
                    "--no-csa", "--paths", "1024", "--steps", "8",

@@ -5,14 +5,14 @@ martingale property, fused-kernel parity, and the generic CF pricer itself
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.cf_pricing import (
+from montecarlo.engine import simulate
+from montecarlo.engine.cf_pricing import (
     cf_call_price,
     kou_log_cf,
     merton_log_cf,
 )
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import Kou, merton_call_series
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import Kou, merton_call_series
 
 S0, R, SIGMA, T = 100.0, 0.03, 0.2, 1.0
 LAM, P_UP, ETA1, ETA2 = 1.0, 0.4, 10.0, 5.0
@@ -80,12 +80,12 @@ def test_kou_fused_kernel_parity():
     n = 128 * 128
     ref = np.asarray(simulate(_kou(), n, 17, seed=5))
     ker = np.asarray(fused_terminal_pallas(_kou(), n, 17, seed=5,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     np.testing.assert_array_equal(ker, ref)
 
 
 def test_kou_antithetic_reduces_variance():
-    from montecarlo_tpu.samplers import AntitheticSampler
+    from montecarlo.samplers import AntitheticSampler
 
     n = 1 << 15
     plain = np.asarray(simulate(_kou(), n, 32, seed=9))
@@ -100,7 +100,7 @@ def test_kou_antithetic_reduces_variance():
 def test_cf_call_price_uses_passed_spot():
     """The s0 argument must enter the S0*P1 term (it used to be dead code,
     silently ignoring spot bumps)."""
-    from montecarlo_tpu.engine.cf_pricing import cf_call_price, kou_log_cf
+    from montecarlo.engine.cf_pricing import cf_call_price, kou_log_cf
 
     phi = kou_log_cf(100.0, 0.03, 0.2, 1.0, 0.4, 10.0, 5.0, 1.0)
     base = float(cf_call_price(phi, 100.0, 105.0, 1.0, 0.03))

@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine.cf_pricing import (cf_call_price, nig_log_cf,
+from montecarlo.engine.cf_pricing import (cf_call_price, nig_log_cf,
                                               vg_log_cf)
-from montecarlo_tpu.engine.implied_vol import implied_vol_call
-from montecarlo_tpu.engine.levy_calibration import calibrate_levy_to_ivs
+from montecarlo.engine.implied_vol import implied_vol_call
+from montecarlo.engine.levy_calibration import calibrate_levy_to_ivs
 
 S0, R = 100.0, 0.03
 KS = np.array([80.0, 90.0, 100.0, 110.0, 120.0] * 3, np.float64)
@@ -50,7 +50,7 @@ def test_fit_params_always_valid():
     """Whatever surface comes in (here: a flat 20% surface neither family
     can match exactly), the returned parameters must satisfy the models'
     own create() constraints — the constraint mapping, not luck."""
-    from montecarlo_tpu.processes import NIG, VarianceGamma
+    from montecarlo.processes import NIG, VarianceGamma
 
     ivs = np.full(KS.shape, 0.2)
     vg = calibrate_levy_to_ivs("vg", KS, TS, ivs, s0=S0, r=R, n_iters=300)
@@ -69,7 +69,7 @@ def test_unknown_family_rejected():
 
 
 def test_cli_calibrate_vg_demo(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["calibrate", "--model", "vg"])
     assert rc == 0
@@ -79,7 +79,7 @@ def test_cli_calibrate_vg_demo(capsys):
 
 
 def test_merton_surface_recovery():
-    from montecarlo_tpu.engine.cf_pricing import merton_log_cf
+    from montecarlo.engine.cf_pricing import merton_log_cf
 
     truth = dict(sigma=0.15, lam=0.8, jump_mean=-0.08, jump_std=0.12)
     ivs = _surface(merton_log_cf(S0, R, truth["sigma"], truth["lam"],
@@ -94,7 +94,7 @@ def test_merton_surface_recovery():
 
 
 def test_kou_surface_recovery():
-    from montecarlo_tpu.engine.cf_pricing import kou_log_cf
+    from montecarlo.engine.cf_pricing import kou_log_cf
 
     truth = dict(sigma=0.15, lam=1.0, p_up=0.35, eta1=9.0, eta2=4.0)
     ivs = _surface(kou_log_cf(S0, R, truth["sigma"], truth["lam"],

@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import netting_set_profile
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.processes.lmm import (LMM, exp_decay_corr,
+from montecarlo.engine.exposure import netting_set_profile
+from montecarlo.engine.simulate import simulate
+from montecarlo.processes.lmm import (LMM, exp_decay_corr,
                                           lmm_caplet_mc, lmm_par_strike,
                                           lmm_swap_value_fn,
                                           lmm_swaption_mc,
@@ -156,8 +156,8 @@ def test_sharded_multistate_bitwise_and_matches_unsharded():
     """LMM books ride the pod twin: bitwise mesh-shape invariance,
     scalars matching the unsharded engine to fp-reassociation noise, and
     bitwise-shared means with the streaming engine."""
-    from montecarlo_tpu.engine.streaming import streaming_netting_profile
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.engine.streaming import streaming_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     n, block = 4096, 256
     m = _model()
@@ -195,7 +195,7 @@ def test_deterministic_and_sobol_eligible():
     """Same seed -> bitwise identical paths; the all-normal draw pattern
     makes the LMM Sobol-eligible (QMC caplet matches Black tighter than
     plain MC at the same path count)."""
-    from montecarlo_tpu.samplers import SobolSampler
+    from montecarlo.samplers import SobolSampler
 
     m = _model()
     a = np.asarray(_obs_paths(m, 512, K, seed=9))
@@ -228,7 +228,7 @@ def test_create_validation():
 def test_cli_bond_lmm(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["bond", "--model", "lmm", "--paths", "8192",
                    "--maturity", "2.0"])
@@ -253,7 +253,7 @@ def test_cli_bond_lmm(capsys):
 def test_cli_xva_lmm(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--underlying", "lmm",
                    "--no-csa", "--paths", "2048", "--steps", "12",
@@ -281,7 +281,7 @@ def test_time_dependent_vols():
     Black variance, the Rebonato map integrates the same covariance, a
     constant-sigma model is BITWISE the explicit constant table, and the
     ttm bootstrap round-trips the generating table."""
-    from montecarlo_tpu.engine.rates_calibration import (
+    from montecarlo.engine.rates_calibration import (
         bootstrap_lmm_ttm_vols)
 
     ttm = 0.14 + 0.3 * (0.25 + 0.25 * np.arange(K)) \
@@ -344,7 +344,7 @@ def test_displaced_diffusion():
     n = 1 << 15
     obs = _obs_paths(m, n, K)
     disc = np.asarray(jnp.exp(-obs[K, -1, :]))
-    from montecarlo_tpu.processes.lmm import lmm_zcb0
+    from montecarlo.processes.lmm import lmm_zcb0
     se = disc.std(ddof=1) / np.sqrt(n)
     assert abs(disc.mean() - lmm_zcb0(m, K)) < 4 * se + 2e-5
     # Negative forwards occur (f0 = 0.5%, shift 2%: plenty of mass < 0).
@@ -380,7 +380,7 @@ def test_bermudan_swaption_lsm():
     the European MC estimator at the same seed (same scan, bitwise
     pathwise cashflows — only the closing mean compiles differently),
     and value is monotone nondecreasing in the exercise rights."""
-    from montecarlo_tpu.engine.bermudan import lmm_bermudan_swaption_lsm
+    from montecarlo.engine.bermudan import lmm_bermudan_swaption_lsm
 
     m = _model()
     s, e = 4, 12
@@ -405,7 +405,7 @@ def test_bermudan_swaption_lsm():
 def test_cli_bond_lmm_bermudan(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["bond", "--model", "lmm", "--swaption", "--paths",
                    "8192", "--maturity", "3.0", "--n-exercise", "4"])
@@ -422,9 +422,9 @@ def test_calibration_roundtrip():
     correlation decay."""
     from scipy.stats import norm
 
-    from montecarlo_tpu.engine.rates_calibration import (
+    from montecarlo.engine.rates_calibration import (
         bootstrap_lmm_vols, calibrate_lmm_corr_to_swaptions)
-    from montecarlo_tpu.processes.lmm import lmm_swaption_rebonato
+    from montecarlo.processes.lmm import lmm_swaption_rebonato
 
     delta, k_fwd, beta_true, strike = 0.25, 12, 0.45, 0.03
     t = delta * np.arange(k_fwd)
@@ -463,7 +463,7 @@ def test_calibration_roundtrip():
 def test_cli_calibrate_lmm(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["calibrate", "--model", "lmm"])
     assert rc == 0
@@ -475,7 +475,7 @@ def test_cli_calibrate_lmm(capsys):
 def test_cli_xva_lmm_greeks_counterparties(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--underlying", "lmm",
                    "--no-csa", "--paths", "1024", "--steps", "8",

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.payoffs import black_scholes_call
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import GBM, LocalVolGBM
+from montecarlo.engine import simulate
+from montecarlo.engine.payoffs import black_scholes_call
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import GBM, LocalVolGBM
 
 S0, R = 100.0, 0.03
 
@@ -90,7 +90,7 @@ def test_cev_surface_matches_ncx2_closed_form():
 def test_skewed_surface_produces_downward_smile():
     """A downward-sloping sigma(S) must produce higher implied vol at low
     strikes (the equity skew) in the simulated prices."""
-    from montecarlo_tpu.engine.implied_vol import implied_vol_call
+    from montecarlo.engine.implied_vol import implied_vol_call
 
     steps, dt = 32, 1.0 / 32.0
     lv = LocalVolGBM.create(
@@ -112,7 +112,7 @@ def test_fused_kernel_bitwise_parity():
         S0, R, dt, steps,
         lambda t, s: 0.2 + 0.1 * np.tanh(np.log(s / S0)) + 0.05 * t)
     a = fused_terminal_pallas(lv, 8192, steps, seed=5, interpret=True,
-                              block_rows=64)
+                              block=128)
     b = simulate(lv, 8192, steps, seed=5)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import Merton, merton_call_series
+from montecarlo.engine import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import Merton, merton_call_series
 
 S0, R, SIGMA, T = 100.0, 0.03, 0.2, 1.0
 LAM, J_MEAN, J_STD = 1.0, -0.05, 0.1
@@ -34,7 +34,7 @@ def test_merton_martingale_under_compensated_drift():
 
 
 def test_merton_fatter_tails_than_gbm():
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.processes import GBM
 
     n = 1 << 16
     s_m = np.asarray(simulate(_merton(), n, N_STEPS, seed=5))
@@ -49,7 +49,7 @@ def test_merton_fused_kernel_parity():
     n = 128 * 128
     ref = np.asarray(simulate(_merton(), n, 17, seed=5))
     ker = np.asarray(fused_terminal_pallas(_merton(), n, 17, seed=5,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     np.testing.assert_array_equal(ker, ref)
 
 

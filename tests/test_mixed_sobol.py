@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.processes import HestonQE, Kou, Merton
-from montecarlo_tpu.samplers import MixedSobolSampler, SobolSampler
+from montecarlo.engine.simulate import simulate
+from montecarlo.processes import HestonQE, Kou, Merton
+from montecarlo.samplers import MixedSobolSampler, SobolSampler
 
 MERTON = dict(s0=100.0, mu=0.03, sigma=0.2, lam=1.0, jump_mean=-0.05,
               jump_std=0.1)
@@ -23,7 +23,7 @@ def _merton(dtype=jnp.float64):
 
 
 def test_for_process_routes_by_draw_kinds():
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.processes import GBM
 
     gbm = GBM.create(100.0, 0.03, 0.2, T / STEPS)
     assert isinstance(SobolSampler.for_process(gbm, 64, STEPS),
@@ -88,7 +88,7 @@ def test_qmc_is_unbiased_and_beats_plain_mc(which, ratio):
     (>2x) — both real reductions."""
     if which == "merton":
         proc = _merton()
-        from montecarlo_tpu.processes import merton_call_series
+        from montecarlo.processes import merton_call_series
 
         oracle = float(merton_call_series(
             MERTON["s0"], 100.0, MERTON["mu"], MERTON["sigma"],
@@ -97,7 +97,7 @@ def test_qmc_is_unbiased_and_beats_plain_mc(which, ratio):
         proc = HestonQE.create(s0=100.0, v0=0.04, mu=0.03, kappa=0.5,
                                theta=0.04, xi=1.0, rho=-0.9,
                                dt=T / STEPS, dtype=jnp.float64)
-        from montecarlo_tpu.engine.heston_analytic import (HestonParams,
+        from montecarlo.engine.heston_analytic import (HestonParams,
                                                            heston_call_cf)
 
         oracle = float(heston_call_cf(
@@ -119,7 +119,7 @@ def test_qmc_is_unbiased_and_beats_plain_mc(which, ratio):
 def test_cli_jump_qmc(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     assert cli.main(["price", "--process", "merton", "--sampler", "sobol",
                      "--paths", "4096", "--steps", "16"]) == 0

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.config import ModelConfig
-from montecarlo_tpu.data.synthetic import generate_ohlcv
-from montecarlo_tpu.ml import (
+from montecarlo.config import ModelConfig
+from montecarlo.data.synthetic import generate_ohlcv
+from montecarlo.ml import (
     ForecastModel,
     GBTConfig,
     gbt_feature_importance,
@@ -17,7 +17,7 @@ from montecarlo_tpu.ml import (
     scaler_transform,
     time_series_split,
 )
-from montecarlo_tpu.quant import features_to_numpy
+from montecarlo.quant import features_to_numpy
 
 
 def test_scaler_matches_sklearn():

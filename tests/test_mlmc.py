@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlo_tpu.engine import black_scholes_call, european_call
-from montecarlo_tpu.engine.mlmc import mlmc_estimate, mlmc_level_moments
-from montecarlo_tpu.processes import GBM, EulerGBM, GARCHBootstrap, Heston
-from montecarlo_tpu.stats.welford import variance
+from montecarlo.engine import black_scholes_call, european_call
+from montecarlo.engine.mlmc import mlmc_estimate, mlmc_level_moments
+from montecarlo.processes import GBM, EulerGBM, GARCHBootstrap, Heston
+from montecarlo.stats.welford import variance
 
 S0, R, SIGMA, T, STRIKE = 100.0, 0.05, 0.2, 1.0, 100.0
 
@@ -128,7 +128,7 @@ def test_mlmc_asian_variance_decay_exact_scheme():
 def test_mlmc_asian_price_matches_fine_grid_oracle():
     """MLMC Asian telescopes to the fine-monitoring price: compare against
     a direct fixed-grid MC at the (dense) finest grid."""
-    from montecarlo_tpu.engine.functionals import (
+    from montecarlo.engine.functionals import (
         ARITH_MEAN, simulate_functionals)
 
     payoff = lambda a: jnp.maximum(a - STRIKE, 0.0)
@@ -148,7 +148,7 @@ def test_mlmc_asian_price_matches_fine_grid_oracle():
 
 def test_mlmc_sharded_level_mesh_invariant():
     """Sharded level moments are bitwise identical across mesh shapes."""
-    from montecarlo_tpu.parallel import make_mesh
+    from montecarlo.parallel import make_mesh
 
     outs = []
     for n_dev in (1, 2, 4):
@@ -162,7 +162,7 @@ def test_mlmc_sharded_level_mesh_invariant():
 
 
 def test_mlmc_estimate_sharded_runs():
-    from montecarlo_tpu.parallel import make_mesh
+    from montecarlo.parallel import make_mesh
 
     res = mlmc_estimate(_euler, _payoff, target_rmse=0.05, seed=17,
                         n0_steps=4, dtype=jnp.float64,
@@ -186,7 +186,7 @@ def test_mlmc_rejects_bootstrap_draws():
 def test_mlmc_sharded_accepts_unaligned_chunk():
     """chunk_paths that is not a multiple of n_shards*4096 must round up to
     the shard quantum instead of crashing mid-run (review finding r2)."""
-    from montecarlo_tpu.parallel import make_mesh
+    from montecarlo.parallel import make_mesh
 
     res = mlmc_estimate(_euler, _payoff, target_rmse=0.08, seed=23,
                         n0_steps=4, dtype=jnp.float64,

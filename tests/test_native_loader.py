@@ -4,9 +4,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from montecarlo_tpu.data._native import get_lib, load_ohlcv_csv
-from montecarlo_tpu.data.fetch import get_stock_data
-from montecarlo_tpu.data.synthetic import generate_ohlcv
+from montecarlo.data._native import get_lib, load_ohlcv_csv
+from montecarlo.data.fetch import get_stock_data
+from montecarlo.data.synthetic import generate_ohlcv
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_quoted_fields_and_no_trailing_newline(tmp_path):
     """Commas inside quoted cells must not shift columns, and a file whose
     last line lacks a trailing newline must still parse (the raw-mmap
     strtod could scan past the mapping)."""
-    from montecarlo_tpu.data._native import load_ohlcv_csv
+    from montecarlo.data._native import load_ohlcv_csv
 
     p = tmp_path / "quoted.csv"
     p.write_bytes(

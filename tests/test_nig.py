@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.cf_pricing import cf_call_price, nig_log_cf
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import NIG
+from montecarlo.engine import simulate
+from montecarlo.engine.cf_pricing import cf_call_price, nig_log_cf
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import NIG
 
 S0, R, T = 100.0, 0.03, 1.0
 ALPHA, BETA, DELTA = 15.0, -5.0, 0.5
@@ -100,12 +100,12 @@ def test_nig_fused_kernel_parity():
     n = 128 * 128
     ref = np.asarray(simulate(_nig(), n, 17, seed=5))
     ker = np.asarray(fused_terminal_pallas(_nig(), n, 17, seed=5,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     np.testing.assert_array_equal(ker, ref)
 
 
 def test_nig_antithetic_reduces_variance():
-    from montecarlo_tpu.samplers import AntitheticSampler
+    from montecarlo.samplers import AntitheticSampler
 
     n = 1 << 15
     plain = np.asarray(simulate(_nig(), n, 32, seed=9))

@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.path_sketch import (
+from montecarlo.engine import simulate
+from montecarlo.engine.path_sketch import (
     path_histograms,
     percentiles_from_histograms,
     sharded_path_percentiles,
 )
-from montecarlo_tpu.parallel import make_mesh
-from montecarlo_tpu.processes import GBM
-from montecarlo_tpu.stats import path_percentiles
+from montecarlo.parallel import make_mesh
+from montecarlo.processes import GBM
+from montecarlo.stats import path_percentiles
 
 N, T = 1 << 14, 20
 LO, HI, BINS = 50.0, 200.0, 2048

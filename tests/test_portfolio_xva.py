@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import (CSA, netting_set_profile,
+from montecarlo.engine.exposure import (CSA, netting_set_profile,
                                             portfolio_xva, swap_value_fn)
-from montecarlo_tpu.processes import Vasicek
+from montecarlo.processes import Vasicek
 
 R0, KAPPA, THETA, SIG = 0.03, 0.6, 0.04, 0.012
 T, N_STEPS, N = 2.0, 32, 2048
@@ -82,7 +82,7 @@ def test_unknown_spec_key_rejected():
 def test_cli_counterparties(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "2048",
                    "--steps", "40", "--counterparties", "2",
@@ -101,7 +101,7 @@ def test_cli_counterparties_mesh(capsys):
 
     import pytest
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "2048",
                    "--steps", "40", "--counterparties", "2", "--mesh", "2",

@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from montecarlo_tpu.rng import normal_draw
-from montecarlo_tpu.stats import (
+from montecarlo.rng import normal_draw
+from montecarlo.stats import (
     moments_from_array,
     moments_merge,
     moments_reduce,

@@ -8,14 +8,14 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.credit import (CopulaSobolSampler, cdo_tranche,
+from montecarlo.engine.credit import (CopulaSobolSampler, cdo_tranche,
                                           credit_rqmc,
                                           tranche_spread_exact)
-from montecarlo_tpu.engine.exposure import (netting_set_profile,
+from montecarlo.engine.exposure import (netting_set_profile,
                                             netting_set_profile_rqmc,
                                             swap_value_fn)
-from montecarlo_tpu.processes import Vasicek
-from montecarlo_tpu.samplers import SobolSampler
+from montecarlo.processes import Vasicek
+from montecarlo.samplers import SobolSampler
 
 T, N_STEPS = 2.0, 10
 R0, KAPPA, THETA, SIG = 0.03, 0.6, 0.04, 0.012
@@ -76,7 +76,7 @@ def test_sharded_netting_sobol_bitwise_and_matches_unsharded():
     """A Sobol table as the sharded engine's draw provider: rows are
     indexed by GLOBAL path id, so profiles stay bitwise mesh-invariant
     and match the unsharded engine under the SAME table."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     model, trades = _book()
     n = 2048
@@ -138,7 +138,7 @@ def test_sharded_credit_sobol_bitwise():
     """CopulaSobolSampler through the sharded credit twin: global-path-id
     row gathers keep the legs bitwise mesh-invariant and equal to the
     unsharded pricer under the same table (to reassociation noise)."""
-    from montecarlo_tpu.parallel import make_mesh, sharded_credit_legs
+    from montecarlo.parallel import make_mesh, sharded_credit_legs
 
     hazards = [0.02] * 8
     n = 2048
@@ -160,8 +160,8 @@ def test_portfolio_var_sampler_seam():
     """portfolio_var(sampler=...) drives the GARCH-bootstrap process
     through the mixed-slot Sobol table (the uniform slots the reference's
     np.random.choice seam maps to) and lands near the plain estimate."""
-    from montecarlo_tpu.api.var import portfolio_var
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.api.var import portfolio_var
+    from montecarlo.processes import GBM
 
     proc = GBM.create(100.0, 0.05, 0.2, 1.0 / 252, dtype=jnp.float32)
     smp = SobolSampler.for_process(proc, 1 << 14, 20, seed=2,

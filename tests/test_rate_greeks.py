@@ -10,12 +10,12 @@ import math
 import jax
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.functionals import (
+from montecarlo.engine.functionals import (
     simulate_functionals,
     trapezoid_integral,
 )
-from montecarlo_tpu.engine.rates import vasicek_zcb
-from montecarlo_tpu.processes import Vasicek
+from montecarlo.engine.rates import vasicek_zcb
+from montecarlo.processes import Vasicek
 
 R0, KAPPA, THETA, SIGMA, T = 0.03, 0.8, 0.05, 0.015, 2.0
 N_STEPS = 64

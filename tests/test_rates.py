@@ -5,15 +5,15 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.rates import (
+from montecarlo.engine import simulate
+from montecarlo.engine.rates import (
     bond_option_mc,
     cir_zcb,
     vasicek_bond_option,
     vasicek_zcb,
     zcb_price_mc,
 )
-from montecarlo_tpu.processes import CIR, HullWhite, Vasicek
+from montecarlo.processes import CIR, HullWhite, Vasicek
 
 R0, KAPPA, THETA, SIGMA = 0.03, 0.8, 0.05, 0.015
 T = 2.0
@@ -127,12 +127,12 @@ def test_vasicek_cap_floor_parity_and_mc():
     import numpy as np
     import jax.numpy as jnp
 
-    from montecarlo_tpu.engine.pricing import mc_estimate
-    from montecarlo_tpu.engine.rates import (vasicek_bond_from_rate,
+    from montecarlo.engine.pricing import mc_estimate
+    from montecarlo.engine.rates import (vasicek_bond_from_rate,
                                              vasicek_cap_price,
                                              vasicek_zcb)
-    from montecarlo_tpu.engine.simulate import simulate
-    from montecarlo_tpu.processes import Vasicek
+    from montecarlo.engine.simulate import simulate
+    from montecarlo.processes import Vasicek
 
     r0, kap, th, sg, k_cap, delta = 0.03, 0.8, 0.05, 0.015, 0.035, 0.25
     resets = delta * np.arange(1, 5)
@@ -167,7 +167,7 @@ def test_vasicek_cap_floor_parity_and_mc():
 def test_cli_bond_cap(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["bond", "--cap", "--paths", "8192"])
     assert rc == 0

@@ -4,8 +4,8 @@ recovery, and the CLI path."""
 
 import numpy as np
 
-from montecarlo_tpu.engine.bermudan import vasicek_swaption_jamshidian
-from montecarlo_tpu.engine.rates_calibration import (
+from montecarlo.engine.bermudan import vasicek_swaption_jamshidian
+from montecarlo.engine.rates_calibration import (
     calibrate_vasicek_to_swaptions, vasicek_swaption_prices)
 
 KAP, TH, SG, R0 = 0.8, 0.05, 0.015, 0.03
@@ -54,7 +54,7 @@ def test_demo_surface_recovery():
 def test_cli_calibrate_vasicek(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["calibrate", "--model", "vasicek", "--iters", "1500"])
     assert rc == 0

@@ -9,9 +9,9 @@ sigma of the estimator's standard error at matched path counts).
 import numpy as np
 import pytest
 
-from montecarlo_tpu.api import garch_monte_carlo
-from montecarlo_tpu.data.synthetic import generate_ohlcv
-from montecarlo_tpu.quant import features_to_numpy
+from montecarlo.api import garch_monte_carlo
+from montecarlo.data.synthetic import generate_ohlcv
+from montecarlo.quant import features_to_numpy
 
 N_SIMS = 30_000
 N_DAYS = 20

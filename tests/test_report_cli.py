@@ -5,9 +5,9 @@ import json
 import numpy as np
 import pytest
 
-from montecarlo_tpu import report
-from montecarlo_tpu.api import analyze_ticker, scan_tickers
-from montecarlo_tpu.config import ModelConfig
+from montecarlo import report
+from montecarlo.api import analyze_ticker, scan_tickers
+from montecarlo.config import ModelConfig
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +43,7 @@ def test_scan_report_sections():
 
 
 def test_cli_price_json(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["price", "--paths", "16384", "--steps", "16",
                    "--sampler", "antithetic"])
@@ -54,7 +54,7 @@ def test_cli_price_json(capsys):
 
 
 def test_cli_analyze_json(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["analyze", "GOOGL", "--json", "--provider", "synthetic",
                    "--period", "3y", "--cv-folds", "3", "--estimators",
@@ -67,7 +67,7 @@ def test_cli_analyze_json(capsys):
 
 
 def test_cli_scan_json(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["scan", "--tickers", "AAPL,MSFT", "--mode", "fast",
                    "--provider", "synthetic", "--json", "--sequential"])
@@ -77,7 +77,7 @@ def test_cli_scan_json(capsys):
 
 
 def test_cli_analyze_failure_exit_code():
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["analyze", "SHORT", "--provider", "synthetic",
                    "--period", "1y"])
@@ -86,8 +86,8 @@ def test_cli_analyze_failure_exit_code():
 
 def test_dispatch_falls_back_on_cpu():
     """On the CPU test platform the dispatcher must use the scan engine."""
-    from montecarlo_tpu.engine import simulate, terminal_prices
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.engine import simulate, terminal_prices
+    from montecarlo.processes import GBM
 
     proc = GBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=1 / 252)
     a = np.asarray(terminal_prices(proc, 2048, 8, seed=3))
@@ -105,7 +105,7 @@ def test_analysis_report_without_mc_or_backtest(analysis):
 
 
 def test_cli_greeks_pathwise_and_lr(capsys):
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["greeks", "--paths", "32768", "--steps", "32",
                    "--maturity", "0.127"])
@@ -127,8 +127,8 @@ def test_cli_calibrate_surface_csv(tmp_path, capsys):
 
     import numpy as np
 
-    from montecarlo_tpu.cli import main
-    from montecarlo_tpu.processes import sabr_hagan_iv
+    from montecarlo.cli import main
+    from montecarlo.processes import sabr_hagan_iv
 
     ks = np.linspace(85.0, 120.0, 8)
     ivs = np.asarray(sabr_hagan_iv(100.0, ks, 1.0, 0.2 * 100.0 ** 0.3,
@@ -149,7 +149,7 @@ def test_cli_sabr_forward_compounds_rate(capsys):
     """CLI SABR must simulate the T-forward f0 = s0*e^{rT} (like app.py's
     Derivatives Lab) so its discounted price matches the risk-neutral gbm
     branch at matching vols — a bare f0 = s0 priced systematically low."""
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     common = ["--paths", "16384", "--steps", "16", "--s0", "100",
               "--strike", "100", "--rate", "0.05", "--sigma", "0.2",
@@ -171,7 +171,7 @@ def test_cli_path_dependent_sobol_reports_replicated_se(capsys):
     """Asian + sobol-device must route through replicated randomizations:
     n_paths rounds to a multiple of 8 replicates and the spread-based
     std_err is materially tighter than the plain-MC iid bar."""
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     args = ["price", "--payoff", "asian", "--paths", "8194", "--steps",
             "16", "--seed", "3"]
@@ -189,7 +189,7 @@ def test_cli_path_dependent_sobol_reports_replicated_se(capsys):
 
 def test_cli_target_se_modes(capsys):
     """--target-se prices adaptively; RQMC mode needs far fewer paths."""
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     base = ["price", "--steps", "16", "--seed", "1", "--target-se"]
     rc = cli.main(base + ["0.02", "--sampler", "sobol-device"])
@@ -214,7 +214,7 @@ def test_cli_nig_matches_cf_oracle(capsys):
     samplers are rejected (NIG consumes IG accept uniforms)."""
     import pytest
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     args = ["price", "--process", "nig", "--paths", "65536", "--steps",
             "32", "--seed", "2"]
@@ -231,7 +231,7 @@ def test_cli_vg_matches_cf_oracle(capsys):
     samplers are rejected (VG consumes gamma-inversion uniforms)."""
     import pytest
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     args = ["price", "--process", "vg", "--paths", "65536", "--steps",
             "32", "--seed", "2"]

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.rng import (
+from montecarlo.rng import (
     categorical_draw,
     normal_draw,
     normal_matrix,
@@ -138,15 +138,15 @@ def test_random_bits_shapes_broadcast():
 
 # --- accurate f32 elementary functions (exp32 / log32) -------------------
 #
-# Round-3 bias bug: the TPU's runtime f32 log is ~-74 ULPs off at
-# price-scale arguments (log(100) low by 3.5e-5) and exp is ~-1.1e-6
-# relative low; through the ~50x spot sensitivity of a 1y call that was a
-# -1.8e-3 price bias on every fused-kernel estimate — 390 sigma under the
-# bridge-RQMC error bar.  exp32/log32 (rng/normal.py) replace them with
-# IEEE-exact-composed versions; these tests pin their accuracy so a future
-# "simplification" back to jnp.exp/jnp.log fails loudly.
+# An approximate runtime f32 log that is tens of ULPs off at price-scale
+# arguments, or an exp biased ~1e-6 relative, becomes through the ~50x spot
+# sensitivity of a 1y call a ~1e-3 price bias — hundreds of sigma under the
+# bridge-RQMC error bar.  exp32/log32 (rng/normal.py) are IEEE-exact-
+# composed and bitwise identical on every backend; these tests pin their
+# accuracy so a future "simplification" back to jnp.exp/jnp.log fails
+# loudly.
 
-from montecarlo_tpu.rng.normal import exp32, log32  # noqa: E402
+from montecarlo.rng.normal import exp32, log32  # noqa: E402
 
 
 def test_exp32_accuracy_and_mean_bias():
@@ -156,8 +156,8 @@ def test_exp32_accuracy_and_mean_bias():
     exact = np.exp(x.astype(np.float64))
     rel = (got - exact) / exact
     assert np.abs(rel).max() < 2.5e-7, np.abs(rel).max()  # ~2 ULP
-    # The property the TPU runtime exp lacks: mean bias ~0 (its -1.1e-6
-    # would compound per step / per path).
+    # Mean bias ~0 (a runtime exp biased by 1e-6 would compound per step /
+    # per path).
     assert abs(rel.mean()) < 1e-8, rel.mean()
 
 
@@ -193,8 +193,8 @@ def test_exp32_log32_domain_clamps_and_f64_passthrough():
 
 def test_exp32_log32_pallas_lowering():
     """Interpret-mode Pallas lowering must agree with plain XLA exactly
-    (the real-chip Mosaic agreement is checked by
-    experiments/tpu_compile_smoke.py)."""
+    (on the card, chip_smoke.py's kernel phase checks the compiled
+    kernels, which call these functions, against the scan engine)."""
     from jax.experimental import pallas as pl
 
     x = np.linspace(-18.0, 18.0, 8 * 128).astype(np.float32).reshape(8, 128)

@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.engine.implied_vol import implied_vol_call
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes.sabr import SABR, sabr_hagan_iv
+from montecarlo.engine import simulate
+from montecarlo.engine.implied_vol import implied_vol_call
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes.sabr import SABR, sabr_hagan_iv
 
 F0, ALPHA, BETA, NU, RHO, T = 100.0, 0.2, 0.7, 0.3, -0.3, 1.0
 N_STEPS = 128
@@ -56,7 +56,7 @@ def test_negative_rho_skews_down():
 def test_lognormal_limit_matches_black_scholes():
     """beta=1, nu tiny: SABR degenerates to (Euler) GBM — the call price
     must approach Black-Scholes."""
-    from montecarlo_tpu.engine import black_scholes_call
+    from montecarlo.engine import black_scholes_call
 
     proc = SABR.create(f0=F0, alpha=0.2, beta=1.0, nu=1e-6, rho=0.0,
                        dt=T / 256)
@@ -72,7 +72,7 @@ def test_sabr_fused_kernel_parity():
     n = 128 * 128
     ref = np.asarray(simulate(_sabr(), n, 17, seed=5))
     ker = np.asarray(fused_terminal_pallas(_sabr(), n, 17, seed=5,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     np.testing.assert_array_equal(ker, ref)
 
 

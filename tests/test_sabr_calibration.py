@@ -4,7 +4,7 @@ Hagan expansion's exact gradients."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.processes.sabr import calibrate_sabr, sabr_hagan_iv
+from montecarlo.processes.sabr import calibrate_sabr, sabr_hagan_iv
 
 F0, T, BETA = 100.0, 1.0, 0.7
 TRUE = {"alpha": 0.2 * F0 ** (1 - BETA), "nu": 0.35, "rho": -0.4}

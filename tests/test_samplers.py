@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlo_tpu.engine import european_call, simulate
-from montecarlo_tpu.processes import GBM
-from montecarlo_tpu.samplers import AntitheticSampler, PlainSampler, SobolSampler
+from montecarlo.engine import european_call, simulate
+from montecarlo.processes import GBM
+from montecarlo.samplers import AntitheticSampler, PlainSampler, SobolSampler
 
 S0, R, SIGMA, STRIKE = 100.0, 0.03, 0.2, 100.0
 N_STEPS = 16
@@ -69,7 +69,7 @@ def test_sobol_beats_plain_mc():
 
 
 def test_antithetic_stream_shard_invariant():
-    from montecarlo_tpu.parallel import make_mesh, sharded_terminal
+    from montecarlo.parallel import make_mesh, sharded_terminal
 
     n = 8192
     full = np.asarray(simulate(_gbm(), n, 8, seed=2,
@@ -85,7 +85,7 @@ def test_device_sobol_bits_match_scipy():
     import jax.numpy as jnp
     from scipy.stats import qmc
 
-    from montecarlo_tpu.rng.sobol import BITS, direction_numbers, sobol_bits
+    from montecarlo.rng.sobol import BITS, direction_numbers, sobol_bits
 
     dims, n = 5, 64
     sv = direction_numbers(dims)
@@ -97,7 +97,7 @@ def test_device_sobol_bits_match_scipy():
 
 
 def test_device_sobol_sampler_variance_reduction():
-    from montecarlo_tpu.rng.sobol import SobolDeviceSampler
+    from montecarlo.rng.sobol import SobolDeviceSampler
 
     n, steps = 2048, N_STEPS
     sob_ests = []
@@ -113,7 +113,7 @@ def test_device_sobol_sampler_variance_reduction():
 
 
 def test_device_sobol_shard_invariant():
-    from montecarlo_tpu.rng.sobol import SobolDeviceSampler
+    from montecarlo.rng.sobol import SobolDeviceSampler
 
     sampler = SobolDeviceSampler.create(8, 1)
     n = 4096
@@ -125,8 +125,8 @@ def test_device_sobol_shard_invariant():
 
 def test_control_variate_reduces_std_err():
     """Terminal price as the control for a European call (corr ~ 0.9+)."""
-    from montecarlo_tpu.engine.control_variate import cv_estimate
-    from montecarlo_tpu.engine import mc_estimate
+    from montecarlo.engine.control_variate import cv_estimate
+    from montecarlo.engine import mc_estimate
 
     n, steps = 1 << 15, N_STEPS
     T = steps * DT
@@ -144,7 +144,7 @@ def test_control_variate_reduces_std_err():
 
 
 def test_brownian_bridge_increments_are_standard_normal():
-    from montecarlo_tpu.samplers import _brownian_bridge_increments
+    from montecarlo.samplers import _brownian_bridge_increments
 
     rng = np.random.default_rng(0)
     z = rng.normal(size=(20000, 16))
@@ -161,7 +161,7 @@ def test_brownian_bridge_increments_are_standard_normal():
 def test_bridge_sobol_unbiased_and_effective_for_asian():
     """Bridge-ordered Sobol prices the Asian call correctly and beats
     plain MC variance at equal path counts."""
-    from montecarlo_tpu.engine.functionals import (
+    from montecarlo.engine.functionals import (
         ARITH_MEAN, asian_call, simulate_functionals)
 
     n, steps = 2048, 16
@@ -184,8 +184,8 @@ def test_bridge_sobol_unbiased_and_effective_for_asian():
 def test_importance_sampling_otm_variance_reduction():
     """OTM call (~2.6 sigma): IS matches Black-Scholes with a fraction of
     the plain-MC error."""
-    from montecarlo_tpu.engine import black_scholes_call, mc_estimate
-    from montecarlo_tpu.engine.importance import (
+    from montecarlo.engine import black_scholes_call, mc_estimate
+    from montecarlo.engine.importance import (
         importance_sampled_estimate,
         shift_to_strike,
     )
@@ -211,8 +211,8 @@ def test_importance_sampling_otm_variance_reduction():
 def test_importance_sampling_extreme_tail():
     """5.9-sigma OTM (K=1.8*S0): plain MC sees ZERO payoffs at 65k paths;
     IS prices it within MC tolerance of Black-Scholes (~1e-8)."""
-    from montecarlo_tpu.engine import black_scholes_call
-    from montecarlo_tpu.engine.importance import (
+    from montecarlo.engine import black_scholes_call
+    from montecarlo.engine.importance import (
         importance_sampled_estimate,
         shift_to_strike,
     )
@@ -233,8 +233,8 @@ def test_importance_sampling_extreme_tail():
 
 def test_importance_sampling_unbiased_atm():
     """Zero shift reduces to the plain estimator exactly."""
-    from montecarlo_tpu.engine import mc_estimate
-    from montecarlo_tpu.engine.importance import importance_sampled_estimate
+    from montecarlo.engine import mc_estimate
+    from montecarlo.engine.importance import importance_sampled_estimate
 
     proc = GBM.create(s0=S0, mu=R, sigma=SIGMA, dt=1 / 252)
     n, steps = 1 << 14, 16
@@ -249,8 +249,8 @@ def test_importance_sampling_unbiased_atm():
 
 def test_stratified_terminal_estimate():
     """Stratified terminal sampling: unbiased and far tighter than plain MC."""
-    from montecarlo_tpu.engine import black_scholes_call, mc_estimate
-    from montecarlo_tpu.engine.importance import stratified_terminal_estimate
+    from montecarlo.engine import black_scholes_call, mc_estimate
+    from montecarlo.engine.importance import stratified_terminal_estimate
 
     steps = 64
     T = steps / 252.0
@@ -270,8 +270,8 @@ def test_stratified_terminal_estimate():
 def test_brownian_bridge_matrix_matches_host_construction():
     """B @ z must equal the host bridge's increments for arbitrary z, and
     rows must be orthonormal (increments stay i.i.d. N(0,1))."""
-    from montecarlo_tpu.rng.sobol import brownian_bridge_matrix
-    from montecarlo_tpu.samplers import _brownian_bridge_increments
+    from montecarlo.rng.sobol import brownian_bridge_matrix
+    from montecarlo.samplers import _brownian_bridge_increments
 
     for T in (4, 7, 16, 63):
         b = brownian_bridge_matrix(T)
@@ -287,8 +287,8 @@ def test_device_bridge_sampler_increment_distribution():
     """Marginals of the device bridged draws are standard normal (mean/var)
     and each step's increment has unit variance — the combination weights
     and dimension bookkeeping are easy to get silently wrong."""
-    from montecarlo_tpu.rng.sobol import SobolBridgeDeviceSampler
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.rng.sobol import SobolBridgeDeviceSampler
+    from montecarlo.processes import GBM
 
     T, n = 16, 4096
     proc = GBM.create(s0=100.0, mu=0.0, sigma=0.2, dt=1.0 / T)
@@ -306,10 +306,10 @@ def test_device_bridge_variance_reduction_matches_host_bridge():
     call like the host-precomputed bridge does (VERDICT item 9's 'done'
     criterion): RMSE over seeds within 2x of the host bridge and well
     under plain MC."""
-    from montecarlo_tpu.engine.simulate import simulate
-    from montecarlo_tpu.engine.payoffs import black_scholes_call
-    from montecarlo_tpu.rng.sobol import SobolBridgeDeviceSampler
-    from montecarlo_tpu.processes import GBM
+    from montecarlo.engine.simulate import simulate
+    from montecarlo.engine.payoffs import black_scholes_call
+    from montecarlo.rng.sobol import SobolBridgeDeviceSampler
+    from montecarlo.processes import GBM
 
     T, n = 32, 2048
     proc = GBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=1.0 / T)
@@ -340,7 +340,7 @@ def test_garch_antithetic_unbiased_and_reduces_variance():
     """Antithetic GARCH mirrors the UNIFORM before the table gather: with a
     skewed (non-demeaned) shock table, negating gathered shocks was biased;
     u -> 1-u keeps both pair halves exact bootstrap draws."""
-    from montecarlo_tpu.processes.garch import GARCHBootstrap
+    from montecarlo.processes.garch import GARCHBootstrap
 
     rng = np.random.default_rng(0)
     rets = np.exp(rng.normal(-0.5, 0.6, size=600)) * 0.02 - 0.015  # skewed
@@ -361,7 +361,7 @@ def test_garch_antithetic_unbiased_and_reduces_variance():
 
 def test_garch_antithetic_halves_are_bootstrap_draws():
     """Every simulated shock (both pair halves) must be a table entry."""
-    from montecarlo_tpu.processes.garch import GARCHBootstrap
+    from montecarlo.processes.garch import GARCHBootstrap
 
     rng = np.random.default_rng(1)
     rets = rng.normal(0, 0.02, size=300)
@@ -380,7 +380,7 @@ def test_garch_antithetic_halves_are_bootstrap_draws():
 def test_rqmc_estimate_honest_error_bar():
     """Replicated-randomization QMC: the error bar must (a) cover the true
     value and (b) be far tighter than plain MC's at the same path count."""
-    from montecarlo_tpu.engine import (black_scholes_call, mc_estimate,
+    from montecarlo.engine import (black_scholes_call, mc_estimate,
                                        rqmc_estimate)
 
     n, steps = 1 << 13, N_STEPS
@@ -401,8 +401,8 @@ def test_rqmc_bridge_error_bar_covers_truth():
     """Bridge-ordered RQMC with per-replicate scrambles: the replicate
     spread must cover the BS truth (digital shifts alone understated the
     error ~8x; fresh LMS scrambles fix the shift-invariant component)."""
-    from montecarlo_tpu.engine import black_scholes_call, rqmc_estimate
-    from montecarlo_tpu.rng.sobol import SobolBridgeDeviceSampler
+    from montecarlo.engine import black_scholes_call, rqmc_estimate
+    from montecarlo.rng.sobol import SobolBridgeDeviceSampler
 
     n, steps = 1 << 13, N_STEPS
     T = steps * DT
@@ -428,9 +428,9 @@ def test_sobol_rejected_for_non_normal_processes():
     (Bates priced 0.06 vs 7.43; review r2). All engines must reject."""
     import pytest
 
-    from montecarlo_tpu.processes import Bates, GARCHBootstrap
-    from montecarlo_tpu.rng.sobol import SobolDeviceSampler
-    from montecarlo_tpu.samplers import SobolSampler
+    from montecarlo.processes import Bates, GARCHBootstrap
+    from montecarlo.rng.sobol import SobolDeviceSampler
+    from montecarlo.samplers import SobolSampler
 
     bates = Bates.create(s0=100.0, v0=0.04, mu=0.03, kappa=2.0, theta=0.04,
                          xi=0.5, rho=-0.7, lam=0.5, jump_mean=-0.08,
@@ -450,8 +450,8 @@ def test_rqmc_one_program_matches_sequential_dispatch():
     """The scanned one-program RQMC must reproduce the replicate means of
     running each replicate as its own dispatch, bitwise (same samplers,
     same shift seeds, same mean reduction)."""
-    from montecarlo_tpu.engine import rqmc_estimate, terminal_prices
-    from montecarlo_tpu.rng.sobol import SobolDeviceSampler
+    from montecarlo.engine import rqmc_estimate, terminal_prices
+    from montecarlo.rng.sobol import SobolDeviceSampler
 
     n, steps, n_rep = 1 << 12, N_STEPS, 4
     seed = 11
@@ -477,7 +477,7 @@ def test_rqmc_functionals_honest_error_bar():
     """Path-dependent payoffs (Asian) through replicated randomizations:
     the spread-based error bar must cover an independent plain-MC price
     and beat plain MC's std-err at equal path counts."""
-    from montecarlo_tpu.engine import (ARITH_MEAN, asian_call, mc_estimate,
+    from montecarlo.engine import (ARITH_MEAN, asian_call, mc_estimate,
                                        rqmc_estimate, simulate_functionals)
 
     n, steps = 1 << 13, N_STEPS
@@ -503,7 +503,7 @@ def test_price_to_tolerance_rqmc_coverage_and_path_savings():
     """The on-device RQMC tolerance loop: (a) reported std_err reaches the
     target, (b) the price covers Black-Scholes across seeds, (c) it needs
     far fewer paths than the plain-MC tolerance loop at the same target."""
-    from montecarlo_tpu.engine import (black_scholes_call,
+    from montecarlo.engine import (black_scholes_call,
                                        price_to_tolerance,
                                        price_to_tolerance_rqmc)
 

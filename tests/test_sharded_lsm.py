@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine import binomial_american_put, lsm_price
-from montecarlo_tpu.parallel import make_mesh, sharded_lsm_price
-from montecarlo_tpu.processes import GBM
+from montecarlo.engine import binomial_american_put, lsm_price
+from montecarlo.parallel import make_mesh, sharded_lsm_price
+from montecarlo.processes import GBM
 
 S0, K, R, SIG, T = 36.0, 40.0, 0.06, 0.2, 1.0
 STEPS = 50
@@ -81,8 +81,8 @@ def test_indivisible_rejected():
 def test_sharded_functional_mesh_invariance():
     """Asian call through `sharded_functional_estimate`: bitwise across
     1/2/4/8-device and 2x4 multi-slice meshes."""
-    from montecarlo_tpu.engine import ARITH_MEAN, asian_call
-    from montecarlo_tpu.parallel import sharded_functional_estimate
+    from montecarlo.engine import ARITH_MEAN, asian_call
+    from montecarlo.parallel import sharded_functional_estimate
 
     proc = GBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=1.0 / 64)
     fns = {"avg": ARITH_MEAN}
@@ -104,10 +104,10 @@ def test_sharded_functional_mesh_invariance():
 def test_sharded_functional_worst_of_note():
     """Multi-asset worst-of autocallable at pod layout == mesh-1, and both
     match the unsharded run to estimator noise."""
-    from montecarlo_tpu.engine import (mc_estimate, simulate_functionals,
+    from montecarlo.engine import (mc_estimate, simulate_functionals,
                                        worst_of_autocallable)
-    from montecarlo_tpu.parallel import sharded_functional_estimate
-    from montecarlo_tpu.processes import MultiGBM
+    from montecarlo.parallel import sharded_functional_estimate
+    from montecarlo.processes import MultiGBM
 
     corr = np.full((3, 3), 0.5)
     np.fill_diagonal(corr, 1.0)
@@ -132,13 +132,13 @@ def test_sharded_functional_worst_of_note():
 
 
 def test_sharded_slv_mesh_invariance():
-    """The exact-rows SLV shards like everything else (its KernelRows
-    leaf only activates inside Pallas kernels; the CPU mesh runs the scan
-    path): bitwise across mesh shapes."""
+    """The exact-rows SLV shards like everything else (its leverage table
+    is a KernelTable only inside the fused kernel; the CPU mesh runs the
+    scan path): bitwise across mesh shapes."""
     import jax.numpy as jnp
 
-    from montecarlo_tpu.parallel import sharded_mc_estimate
-    from montecarlo_tpu.processes.slv import SLV
+    from montecarlo.parallel import sharded_mc_estimate
+    from montecarlo.processes.slv import SLV
 
     steps = 16
     rows = jnp.asarray(
@@ -167,7 +167,7 @@ def test_sharded_slv_mesh_invariance():
 
 @pytest.fixture(scope="module")
 def _dual_setup():
-    from montecarlo_tpu.engine.american import lsm_policy
+    from montecarlo.engine.american import lsm_policy
 
     _, policy = lsm_policy(_proc(), _put, N_PATHS, STEPS, seed=7, rate=R,
                            dt=DT, degree=3)
@@ -175,7 +175,7 @@ def _dual_setup():
 
 
 def _dual(n_dev_or_mesh, policy):
-    from montecarlo_tpu.parallel import sharded_andersen_broadie_bound
+    from montecarlo.parallel import sharded_andersen_broadie_bound
 
     mesh = (n_dev_or_mesh if not isinstance(n_dev_or_mesh, int)
             else make_mesh(n_dev_or_mesh))
@@ -198,7 +198,7 @@ def test_sharded_dual_bitwise_mesh_invariance(_dual_setup):
 def test_sharded_dual_brackets_binomial(_dual_setup):
     """LSM lower (its known small low bias) <= binomial oracle <= dual
     upper, within error bars: the full distributed bracket."""
-    from montecarlo_tpu.engine.american import andersen_broadie_bound
+    from montecarlo.engine.american import andersen_broadie_bound
 
     oracle = binomial_american_put(S0, K, R, SIG, T, n_steps=1000)
     lo, lo_se = _price(8)

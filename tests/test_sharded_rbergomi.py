@@ -4,8 +4,8 @@ fixed-block sharding contract."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.parallel import make_mesh, sharded_rbergomi_estimate
-from montecarlo_tpu.processes.rough_bergomi import (RoughBergomi,
+from montecarlo.parallel import make_mesh, sharded_rbergomi_estimate
+from montecarlo.processes.rough_bergomi import (RoughBergomi,
                                                     rbergomi_simulate)
 
 N_PATHS, BLOCK, T_STEPS = 4096, 512, 32

@@ -4,10 +4,10 @@ engine and the bitwise mesh-shape-invariance contract."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import CSA, netting_set_profile, \
+from montecarlo.engine.exposure import CSA, netting_set_profile, \
     swap_value_fn
-from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
-from montecarlo_tpu.processes import GBM, Vasicek
+from montecarlo.parallel import make_mesh, sharded_netting_profile
+from montecarlo.processes import GBM, Vasicek
 
 R0, KAPPA, THETA, SIG = 0.03, 0.6, 0.04, 0.012
 T, N_STEPS = 2.0, 32
@@ -127,7 +127,7 @@ def test_multi_slice_two_level_matches_flat():
 def test_cli_xva_portfolio_mesh(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--paths", "4096", "--steps", "50",
                    "--mesh", "2", "--threshold", "0.005"])
@@ -202,8 +202,8 @@ def test_sharded_greeks_bitwise_mesh_invariant_and_match_unsharded():
     as the level profile, so values AND greeks are bitwise identical
     across mesh shapes; the unsharded engine agrees to reassociation
     noise."""
-    from montecarlo_tpu.engine.exposure import xva_greeks
-    from montecarlo_tpu.parallel import sharded_xva_greeks
+    from montecarlo.engine.exposure import xva_greeks
+    from montecarlo.parallel import sharded_xva_greeks
 
     kwg = dict(T=T, seed=7, hazard_rate=0.02, recovery=0.4,
                own_hazard_rate=0.01, funding_spread=0.004, kva_cost=0.10,
@@ -249,7 +249,7 @@ def test_sharded_portfolio_single_set_bitwise_netting_profile():
     """A one-set sharded portfolio is bitwise identical to
     `sharded_netting_profile` — both are the same `_sharded_portfolio_core`
     program, so the equality is structural, and this test pins it."""
-    from montecarlo_tpu.parallel import sharded_portfolio_xva
+    from montecarlo.parallel import sharded_portfolio_xva
 
     model, trades = _rates_book()
     kw = dict(T=T, seed=7, mesh=make_mesh(4), block_size=BLOCK,
@@ -273,8 +273,8 @@ def test_sharded_portfolio_mesh_invariant_and_matches_unsharded():
     and scalar is bitwise mesh-shape-invariant; scalars agree with the
     unsharded `portfolio_xva` to fp-reassociation noise; totals are
     exactly additive."""
-    from montecarlo_tpu.engine.exposure import portfolio_xva
-    from montecarlo_tpu.parallel import sharded_portfolio_xva
+    from montecarlo.engine.exposure import portfolio_xva
+    from montecarlo.parallel import sharded_portfolio_xva
 
     model, sets = _portfolio_sets()
     kw = dict(T=T, seed=7, block_size=BLOCK, pfe_bins=_PFE_BINS,
@@ -310,8 +310,8 @@ def test_sharded_portfolio_wwr_and_im_per_set():
     """Per-set wwr_beta/im_spread through the sharded portfolio (round 5:
     nothing left on the exclusion list): bitwise mesh invariance with
     mixed per-set terms, and parity with the unsharded portfolio."""
-    from montecarlo_tpu.engine.exposure import portfolio_xva
-    from montecarlo_tpu.parallel import sharded_portfolio_xva
+    from montecarlo.engine.exposure import portfolio_xva
+    from montecarlo.parallel import sharded_portfolio_xva
 
     model, (v1, v2) = _rates_book()
     sets = {"a": dict(trades=(v1,), hazard_rate=0.02, wwr_beta=1.0,
@@ -349,7 +349,7 @@ def test_sharded_greeks_f32_mesh8_bitwise():
     flipped a few ULPs between 1- and 8-device meshes (caught by the
     driver dryrun, invisible to the f64 mesh-1/4 test above).  The
     per-parameter jvp form must keep values AND greeks bitwise."""
-    from montecarlo_tpu.parallel import sharded_xva_greeks
+    from montecarlo.parallel import sharded_xva_greeks
 
     kwg = dict(T=0.8, seed=5, outputs=("cva", "fva"), hazard_rate=0.02,
                funding_spread=0.004, block_size=256, pfe_bins=64,
@@ -370,7 +370,7 @@ def test_sharded_greeks_f32_mesh8_bitwise():
 def test_cli_xva_portfolio_mesh_greeks(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--paths", "4096", "--steps",
                    "32", "--mesh", "2", "--no-csa", "--greeks",

@@ -10,15 +10,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlo_tpu.engine import european_call, simulate
-from montecarlo_tpu.parallel import (
+from montecarlo.engine import european_call, simulate
+from montecarlo.parallel import (
     make_mesh,
     sharded_mc_estimate,
     sharded_terminal,
     sharded_terminal_sketch,
 )
-from montecarlo_tpu.processes import GBM
-from montecarlo_tpu.stats import sketch_quantile
+from montecarlo.processes import GBM
+from montecarlo.stats import sketch_quantile
 
 N_PATHS = 1 << 15
 N_STEPS = 32
@@ -68,7 +68,7 @@ def test_estimate_bitwise_invariant_across_mesh_shapes(ndev,
 
 
 def test_sharded_estimate_statistically_correct():
-    from montecarlo_tpu.engine import black_scholes_call, discount_factor
+    from montecarlo.engine import black_scholes_call, discount_factor
 
     mesh = make_mesh(8)
     est = sharded_mc_estimate(
@@ -124,9 +124,9 @@ def test_two_axis_mesh_paths_sharding():
 def test_asset_axis_sharded_basket():
     """2-D (paths x assets) basket sharding: correlated draws regenerate
     locally (no collectives in the loop); matches the unsharded engine."""
-    from montecarlo_tpu.engine import simulate
-    from montecarlo_tpu.parallel import sharded_basket_estimate
-    from montecarlo_tpu.processes import BasketGBM
+    from montecarlo.engine import simulate
+    from montecarlo.parallel import sharded_basket_estimate
+    from montecarlo.processes import BasketGBM
 
     corr = np.eye(4) * 0.6 + 0.4
     basket = BasketGBM.create(
@@ -154,9 +154,9 @@ def test_asset_axis_sharded_basket():
 def test_asset_axis_sharded_large_basket():
     """16 assets over 4 asset shards x 2 path shards — the ASSETS_AXIS path
     beyond the small 4-asset case (each shard owns 4 Cholesky rows)."""
-    from montecarlo_tpu.engine import simulate
-    from montecarlo_tpu.parallel import sharded_basket_estimate
-    from montecarlo_tpu.processes import BasketGBM
+    from montecarlo.engine import simulate
+    from montecarlo.parallel import sharded_basket_estimate
+    from montecarlo.processes import BasketGBM
 
     rng = np.random.default_rng(3)
     a_n = 16
@@ -192,7 +192,7 @@ def test_weak_scaling_structure():
     all_gather width grows.  Estimates across mesh sizes must agree within
     MC error and report the right global path counts; the 8-device case is
     the virtual stand-in for the pod-scale claim (BASELINE.md row 3)."""
-    from montecarlo_tpu.parallel import sharded_mc_estimate
+    from montecarlo.parallel import sharded_mc_estimate
 
     local_n = 4096
     prices = {}
@@ -213,8 +213,8 @@ def test_weak_scaling_structure():
 def test_sharded_estimate_path_offset_chunking():
     """path_offset chunks compose: two disjoint half-runs merge to the
     full-run estimate (the pod-scale chunking hook)."""
-    from montecarlo_tpu.parallel import sharded_mc_estimate
-    from montecarlo_tpu.stats.welford import (MomentState, moments_merge,
+    from montecarlo.parallel import sharded_mc_estimate
+    from montecarlo.stats.welford import (MomentState, moments_merge,
                                               std_error)
 
     mesh = make_mesh(4)
@@ -300,7 +300,7 @@ def test_multi_slice_guards():
 
 @pytest.fixture(scope="module")
 def _greeks_mesh1():
-    from montecarlo_tpu.parallel import sharded_price_and_greeks
+    from montecarlo.parallel import sharded_price_and_greeks
 
     disc = float(np.exp(-0.03 * 64 / 252))
     return sharded_price_and_greeks(_gbm(), _payoff, 1 << 16, 64, seed=11,
@@ -313,7 +313,7 @@ def test_sharded_greeks_bitwise_invariant(ndev, _greeks_mesh1):
     """Price AND every gradient leaf (and their error bars) bitwise
     identical across mesh shapes — the per-block vmap(value_and_grad) +
     fixed-tree merge contract."""
-    from montecarlo_tpu.parallel import sharded_price_and_greeks
+    from montecarlo.parallel import sharded_price_and_greeks
 
     disc = float(np.exp(-0.03 * 64 / 252))
     r = sharded_price_and_greeks(_gbm(), _payoff, 1 << 16, 64, seed=11,
@@ -333,7 +333,7 @@ def test_sharded_greeks_bitwise_invariant(ndev, _greeks_mesh1):
 def test_sharded_greeks_match_black_scholes(_greeks_mesh1):
     """Delta (grads.s0) and vega (grads.sigma) agree with the closed forms
     within their own blockwise-CLT error bars."""
-    from montecarlo_tpu.engine.greeks import (black_scholes_delta,
+    from montecarlo.engine.greeks import (black_scholes_delta,
                                               black_scholes_vega)
 
     T = 64 / 252
@@ -351,8 +351,8 @@ def test_sharded_greeks_multislice_and_int_leaves():
     """Multi-slice mesh stays bitwise-equal to the flat mesh, and integer
     process leaves (GARCH's n_table) come back as zero gradients instead
     of float0 (the gather/merge needs uniform float arithmetic)."""
-    from montecarlo_tpu.parallel import sharded_price_and_greeks
-    from montecarlo_tpu.processes.garch import GARCHBootstrap
+    from montecarlo.parallel import sharded_price_and_greeks
+    from montecarlo.processes.garch import GARCHBootstrap
 
     flat = sharded_price_and_greeks(_gbm(), _payoff, 1 << 15, 16, seed=4,
                                     mesh=make_mesh(8), block_size=BLOCK)

@@ -6,12 +6,12 @@ exists for), and the smile-dynamics separation from pure local vol."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import european_call, mc_estimate, simulate
-from montecarlo_tpu.engine.heston_analytic import HestonParams, heston_call_cf
-from montecarlo_tpu.engine.implied_vol import implied_vol_call
-from montecarlo_tpu.processes.dupire import local_vol_fn_from_ivs
-from montecarlo_tpu.processes.local_vol import LocalVolGBM
-from montecarlo_tpu.processes.slv import calibrate_slv
+from montecarlo.engine import european_call, mc_estimate, simulate
+from montecarlo.engine.heston_analytic import HestonParams, heston_call_cf
+from montecarlo.engine.implied_vol import implied_vol_call
+from montecarlo.processes.dupire import local_vol_fn_from_ivs
+from montecarlo.processes.local_vol import LocalVolGBM
+from montecarlo.processes.slv import calibrate_slv
 
 S0, RATE = 100.0, 0.03
 STRIKES = np.linspace(70.0, 140.0, 15)
@@ -106,7 +106,7 @@ def test_cli_price_slv(capsys):
     neighborhood (ATM iv 0.2 with a -0.1 skew)."""
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["price", "--process", "slv", "--paths", "16384",
                    "--steps", "32", "--strike", "100", "--maturity", "0.5"])
@@ -139,18 +139,18 @@ def _demo_slv(n_steps=64, xi=0.8):
 def test_slv_knots_fused_matches_scan():
     """SLVKnots is fused-kernel eligible: the Pallas kernel (interpret
     mode) must match the scan engine ULP-tight (same draws, same step
-    algebra; the hat blend + lane gathers introduce FMA-contraction
+    algebra; the knot blend + table reads introduce FMA-contraction
     differences only)."""
-    from montecarlo_tpu.engine.dispatch import _FUSABLE
-    from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-    from montecarlo_tpu.processes import slv_to_kernel
+    from montecarlo.engine.dispatch import _FUSABLE
+    from montecarlo.ops.fused_engine import fused_terminal_pallas
+    from montecarlo.processes import slv_to_kernel
 
     proc = slv_to_kernel(_demo_slv(), n_time_knots=8)
     assert isinstance(proc, _FUSABLE)
     n = 128 * 32
     ref = np.asarray(simulate(proc, n, 17, seed=5))
     ker = np.asarray(fused_terminal_pallas(proc, n, 17, seed=5,
-                                           block_rows=32, interpret=True))
+                                           block=512, interpret=True))
     np.testing.assert_allclose(ker, ref, rtol=2e-6)
 
 
@@ -158,7 +158,7 @@ def test_slv_knots_reprices_like_exact_rows():
     """The hat-blended (piecewise-linear-in-time) leverage must price
     inside the MC noise of the exact per-step rows — the approximation
     slv_to_kernel documents."""
-    from montecarlo_tpu.processes import slv_to_kernel
+    from montecarlo.processes import slv_to_kernel
 
     slv = _demo_slv(n_steps=64)
     knots = slv_to_kernel(slv, n_time_knots=16)
@@ -172,19 +172,18 @@ def test_slv_knots_reprices_like_exact_rows():
 
 
 def test_slv_exact_rows_fused_matches_scan():
-    """The exact-rows SLV itself is fused-kernel eligible through the
-    KernelRows ref protocol (ops/fused_engine.py): kernel (interpret mode)
-    vs scan engine, ULP-tight.  Slightly looser than the 2e-6 of the
-    other ULP-tight processes: the two engines read the leverage row with
-    DIFFERENT exact formulations (lane gathers vs the two-level one-hot),
-    so the combine products round independently each step."""
-    from montecarlo_tpu.engine.dispatch import _FUSABLE
-    from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
+    """The exact-rows SLV itself is fused-kernel eligible (its (steps, 128)
+    leverage table is a KernelTable inside the kernel): kernel (interpret
+    mode) vs scan engine, ULP-tight.  The tolerance stays at 5e-6 (the
+    leverage interpolation and step chain are contraction candidates;
+    on the card the two engines agreed bitwise)."""
+    from montecarlo.engine.dispatch import _FUSABLE
+    from montecarlo.ops.fused_engine import fused_terminal_pallas
 
     proc = _demo_slv(n_steps=17)
     assert isinstance(proc, _FUSABLE)
     n = 128 * 32
     ref = np.asarray(simulate(proc, n, 17, seed=5))
     ker = np.asarray(fused_terminal_pallas(proc, n, 17, seed=5,
-                                           block_rows=32, interpret=True))
+                                           block=512, interpret=True))
     np.testing.assert_allclose(ker, ref, rtol=5e-6)

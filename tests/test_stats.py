@@ -1,9 +1,10 @@
 """Statistics layer: Welford merge law, percentiles, sketch, risk formulas."""
 
+import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.stats import (
+from montecarlo.stats import (
     moments_from_array,
     moments_merge,
     moments_reduce,
@@ -129,7 +130,7 @@ def test_sketch_counts_exact_past_f32_precision():
     """Counts are integer by default: adding one value to a bin already at
     2^24 must increment it (f32 lanes would silently drop it — the round-1
     silent-wrongness bug at pod-scale path counts)."""
-    from montecarlo_tpu.stats.quantiles import HistogramSketch, sketch_add
+    from montecarlo.stats.quantiles import HistogramSketch, sketch_add
 
     bins = 64
     big = 1 << 24
@@ -153,7 +154,7 @@ def test_sketch_counts_exact_past_f32_precision():
 def test_sketch_quantile_survives_past_int32_total():
     """Quantiles stay correct when the accumulated total exceeds 2^31 —
     an int32 total/cdf would wrap negative and return garbage."""
-    from montecarlo_tpu.stats.quantiles import HistogramSketch
+    from montecarlo.stats.quantiles import HistogramSketch
 
     bins = 64
     per_bin = (1 << 31) // 16  # 32 hot bins -> total = 2^32 > int32 max
@@ -184,7 +185,7 @@ def test_sketch_int_counts_quantile_math_still_float():
 def test_sketch_quantile_std_err_calibrated():
     """The reported asymptotic quantile se must match the empirical spread
     of the estimator across independent replications (factor < ~1.7)."""
-    from montecarlo_tpu.stats import sketch_from_array, sketch_quantile_std_err
+    from montecarlo.stats import sketch_from_array, sketch_quantile_std_err
 
     rng = np.random.default_rng(0)
     n = 1 << 14
@@ -201,3 +202,18 @@ def test_sketch_quantile_std_err_calibrated():
     from scipy.stats import norm
     theory = np.sqrt(0.05 * 0.95 / n) / norm.pdf(norm.ppf(0.05))
     assert 0.7 < rep / theory < 1.4, (rep, theory)
+
+
+@pytest.mark.parametrize("bins,n", [(7, 10), (64, 1000), (100, 12345),
+                                    (4096, 1 << 16)])
+def test_histogram_counts_match_bincount(bins, n):
+    """The one histogram path (`segment_sum`) counts exactly like
+    `np.bincount`, with a peaked distribution so many indices collide."""
+    from montecarlo.stats.quantiles import histogram_counts
+
+    rng = np.random.default_rng(bins)
+    idx = np.clip((rng.normal(size=n) * bins / 8 + bins / 2).astype(np.int64),
+                  0, bins - 1).astype(np.int32)
+    got = np.asarray(histogram_counts(jnp.asarray(idx), bins))
+    np.testing.assert_array_equal(got, np.bincount(idx, minlength=bins))
+    assert got.dtype == np.int32

@@ -5,13 +5,13 @@ import os
 import numpy as np
 import pytest
 
-from montecarlo_tpu.engine.streaming import (
+from montecarlo.engine.streaming import (
     StreamingState,
     risk_from_state,
     streaming_estimate,
 )
-from montecarlo_tpu.parallel import make_mesh
-from montecarlo_tpu.processes import GBM
+from montecarlo.parallel import make_mesh
+from montecarlo.processes import GBM
 
 N_STEPS = 16
 CHUNK = 4096
@@ -101,7 +101,7 @@ def test_risk_from_state_contract():
         assert key in out
     assert out["n_paths"] == TOTAL
     # Sketch quantiles close to exact ones from a direct simulation.
-    from montecarlo_tpu.engine import simulate
+    from montecarlo.engine import simulate
     terminal = np.asarray(simulate(_gbm(), TOTAL, N_STEPS, seed=5))
     for q in (5, 50, 95):
         exact = np.percentile(terminal, q)
@@ -111,7 +111,7 @@ def test_risk_from_state_contract():
 
 
 def test_portfolio_var_sharded_vs_streaming():
-    from montecarlo_tpu.api import portfolio_var
+    from montecarlo.api import portfolio_var
 
     mesh = make_mesh(8)
     a = portfolio_var(_gbm(), TOTAL, N_STEPS, 100.0, seed=5, mesh=mesh,
@@ -133,7 +133,7 @@ def test_portfolio_var_sharded_vs_streaming():
 def test_price_to_tolerance_on_device_loop():
     import jax.numpy as jnp
 
-    from montecarlo_tpu.engine import (
+    from montecarlo.engine import (
         black_scholes_call,
         european_call,
         price_to_tolerance,
@@ -153,8 +153,8 @@ def test_price_to_tolerance_on_device_loop():
 
 
 def test_portfolio_var_on_device_matches_streaming():
-    from montecarlo_tpu.api import portfolio_var
-    from montecarlo_tpu.api.var import portfolio_var_on_device
+    from montecarlo.api import portfolio_var
+    from montecarlo.api.var import portfolio_var_on_device
 
     a = portfolio_var_on_device(_gbm(), TOTAL, N_STEPS, 100.0, seed=5,
                                 bins=512, chunk_paths=CHUNK)
@@ -222,10 +222,10 @@ def test_var_auto_reranges_fat_jump_tail():
     RNG state) and report CVaR within sketch tolerance of the exact value
     — previously the tail mass was approximated at the grid edge and only
     a counter recorded it (round-2 verdict weak #7)."""
-    from montecarlo_tpu.api.var import (_pilot_range,
+    from montecarlo.api.var import (_pilot_range,
                                         portfolio_var_on_device)
-    from montecarlo_tpu.engine import simulate
-    from montecarlo_tpu.processes import Merton
+    from montecarlo.engine import simulate
+    from montecarlo.processes import Merton
 
     proc = Merton.create(s0=100.0, mu=0.03, sigma=0.15, lam=0.002,
                          jump_mean=-2.5, jump_std=0.3, dt=1 / 252)
@@ -268,8 +268,8 @@ def test_grid_error_brackets_exact_sort_var():
     the exact-sort VaR on a deliberately coarse grid, and a path count
     whose sampling bar has shrunk below the grid floor must warn that the
     estimate is grid-limited."""
-    from montecarlo_tpu.api import portfolio_var
-    from montecarlo_tpu.engine.dispatch import terminal_prices
+    from montecarlo.api import portfolio_var
+    from montecarlo.engine.dispatch import terminal_prices
 
     n = 1 << 22
     with pytest.warns(UserWarning, match="grid"):
@@ -288,3 +288,27 @@ def test_grid_error_brackets_exact_sort_var():
     cvar_exact = 100.0 - term[term <= p5].mean()
     assert abs(res["cvar_95"] - cvar_exact) <= res["cvar_95_grid_err"], (
         res["cvar_95"], cvar_exact, res["cvar_95_grid_err"])
+
+
+def test_npz_checkpoint_needs_no_orbax(tmp_path, monkeypatch):
+    """Without orbax, the .npz route still saves and restores."""
+    import sys
+
+    for mod in [m for m in sys.modules if m.startswith("orbax")]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    ckpt = str(tmp_path / "s.npz")
+    state = _run(checkpoint_path=ckpt)
+    assert StreamingState.load(ckpt).paths_done == state.paths_done
+
+
+def test_directory_checkpoint_without_orbax_says_so(tmp_path, monkeypatch):
+    import sys
+
+    import pytest
+
+    for mod in [m for m in sys.modules if m.startswith("orbax")]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    with pytest.raises(ImportError, match=r"orbax.*\.npz"):
+        StreamingState.load(str(tmp_path / "ckpt_dir"))

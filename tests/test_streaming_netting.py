@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import CSA, swap_value_fn
-from montecarlo_tpu.engine.streaming import streaming_netting_profile
-from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
-from montecarlo_tpu.processes import Vasicek
+from montecarlo.engine.exposure import CSA, swap_value_fn
+from montecarlo.engine.streaming import streaming_netting_profile
+from montecarlo.parallel import make_mesh, sharded_netting_profile
+from montecarlo.processes import Vasicek
 
 T, N_STEPS = 2.0, 16
 TOTAL, CHUNK, BLOCK = 8192, 2048, 256          # 8 blocks/chunk (pow2)
@@ -103,7 +103,7 @@ def test_means_bitwise_match_sharded_scalars_to_a_ulp():
 def _tiny_grid_checkpoint(path):
     """A fresh checkpoint whose PFE grid is microscopic — the
     drifting-exposure-scale scenario: every real exposure clears it."""
-    from montecarlo_tpu.engine import streaming as sm
+    from montecarlo.engine import streaming as sm
 
     n_q, n_dates = 9 + len(_book()[1]), N_STEPS + 1
     sm.NettingStreamState(
@@ -199,7 +199,7 @@ def test_validation_errors():
 def test_cli_xva_checkpoint(capsys, tmp_path):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     ck = str(tmp_path / "cli_net.npz")
     argv = ["xva", "--portfolio", "--no-csa", "--paths", "4096",

@@ -4,10 +4,10 @@ number smoothness, and the named-scenario report."""
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlo_tpu.api.stress import (ladder, standard_scenarios,
+from montecarlo.api.stress import (ladder, standard_scenarios,
                                        stress_grid, stress_report)
-from montecarlo_tpu.engine import black_scholes_call
-from montecarlo_tpu.processes import GBM
+from montecarlo.engine import black_scholes_call
+from montecarlo.processes import GBM
 
 S0, R, SIGMA, STRIKE, T, N_STEPS = 100.0, 0.03, 0.2, 105.0, 1.0, 32
 N = 1 << 15

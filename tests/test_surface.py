@@ -4,8 +4,8 @@ correctness, and Heston smile shape."""
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlo_tpu.engine.surface import mc_implied_vol_surface
-from montecarlo_tpu.processes import GBM, Heston
+from montecarlo.engine.surface import mc_implied_vol_surface
+from montecarlo.processes import GBM, Heston
 
 S0, R, SIGMA = 100.0, 0.03, 0.2
 
@@ -25,9 +25,9 @@ def test_gbm_surface_is_flat_at_sigma():
 def test_snapshot_matches_shorter_run():
     """The step-s snapshot of a long run equals the terminal of a run
     stopped at s (identical counter-based draws)."""
-    from montecarlo_tpu.engine import simulate
-    from montecarlo_tpu.engine.functionals import simulate_functionals
-    from montecarlo_tpu.engine.surface import price_snapshot
+    from montecarlo.engine import simulate
+    from montecarlo.engine.functionals import simulate_functionals
+    from montecarlo.engine.surface import price_snapshot
 
     dt = 1 / 32
     proc = GBM.create(s0=S0, mu=R, sigma=SIGMA, dt=dt, dtype=jnp.float64)
@@ -56,9 +56,9 @@ def test_forward_start_option_via_snapshot():
     """Forward-start call max(S_T - k*S_t1, 0): priced from one run with a
     price snapshot at t1, validated against the Rubinstein closed form
     price = S0 * C_BS(spot=1, strike=k, r, sigma, T - t1)."""
-    from montecarlo_tpu.engine import (black_scholes_call, mc_estimate,
+    from montecarlo.engine import (black_scholes_call, mc_estimate,
                                       simulate_functionals)
-    from montecarlo_tpu.engine.surface import price_snapshot
+    from montecarlo.engine.surface import price_snapshot
 
     n_steps, t1_step = 64, 32
     dt = 1.0 / n_steps

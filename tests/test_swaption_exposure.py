@@ -6,13 +6,13 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.bermudan import vasicek_swaption_jamshidian
-from montecarlo_tpu.engine.exposure import (netting_set_profile,
+from montecarlo.engine.bermudan import vasicek_swaption_jamshidian
+from montecarlo.engine.exposure import (netting_set_profile,
                                             swap_value_fn,
                                             swaption_value_fn, xva_greeks)
-from montecarlo_tpu.engine.rates import vasicek_zcb
-from montecarlo_tpu.engine.simulate import simulate
-from montecarlo_tpu.processes import Vasicek
+from montecarlo.engine.rates import vasicek_zcb
+from montecarlo.engine.simulate import simulate
+from montecarlo.processes import Vasicek
 
 R0, KAPPA, THETA, SIG = 0.03, 0.6, 0.04, 0.012
 T_END, N_STEPS = 2.0, 64
@@ -104,7 +104,7 @@ def test_discounted_physical_mark_plus_paid_flows_is_martingale():
     the reset-date float-leg approximation fails it by ~30 sigma), and
     past payment dates once the paid coupons are added back.  3.5-sigma
     MC band: the sharp end-to-end consistency check on the contract."""
-    from montecarlo_tpu.engine.rates import vasicek_bond_from_rate
+    from montecarlo.engine.rates import vasicek_bond_from_rate
 
     model = _model()
     tr = swaption_value_fn(model, K, T0, PAY_TIMES, DELTA, physical=True)
@@ -148,7 +148,7 @@ def test_discounted_physical_mark_plus_paid_flows_is_martingale():
 
 
 def test_sharded_netting_with_swaption_matches_and_mesh_invariant():
-    from montecarlo_tpu.parallel import make_mesh, sharded_netting_profile
+    from montecarlo.parallel import make_mesh, sharded_netting_profile
 
     model = _model()
     swap = swap_value_fn(model, 0.03, PAY_TIMES, DELTA)
@@ -202,7 +202,7 @@ def test_swaption_book_greeks_match_finite_differences():
 def test_cli_swaption_leg(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "2048",
                    "--steps", "40", "--swaption-leg"])

@@ -4,9 +4,9 @@ correlation, fused-kernel parity."""
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import BasketGBM, TermBasketGBM
+from montecarlo.engine import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import BasketGBM, TermBasketGBM
 
 A, N_STEPS, DT = 3, 64, 1.0 / 64
 S0 = [100.0, 50.0, 75.0]
@@ -47,7 +47,7 @@ def test_vol_strip_matches_integrated_variance():
 def test_correlation_flows_through_curves():
     """With identical curves and strong correlation, per-asset log returns
     must correlate near the input correlation."""
-    from montecarlo_tpu.processes import MultiGBM
+    from montecarlo.processes import MultiGBM
 
     # Cross-check basket value against MultiGBM (same corr, flat curves).
     mg = MultiGBM.create(s0=S0, mu=MU, sigma=SIG, corr=CORR, dt=DT)
@@ -63,5 +63,5 @@ def test_term_basket_fused_kernel_parity():
     n = 128 * 128
     ref = np.asarray(simulate(_flat(), n, 17, seed=5))
     ker = np.asarray(fused_terminal_pallas(_flat(), n, 17, seed=5,
-                                           block_rows=128, interpret=True))
+                                           block=256, interpret=True))
     np.testing.assert_array_equal(ker, ref)

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.ops.fused_engine import fused_terminal_pallas
-from montecarlo_tpu.processes import GBM, TermStructureGBM
+from montecarlo.engine import simulate
+from montecarlo.ops.fused_engine import fused_terminal_pallas
+from montecarlo.processes import GBM, TermStructureGBM
 
 
 def test_flat_curves_reduce_to_gbm():
@@ -54,5 +54,5 @@ def test_fused_kernel_parity_interpret():
     n = 128 * 64
     ref = np.asarray(simulate(proc, n, steps, seed=5))
     ker = np.asarray(fused_terminal_pallas(proc, n, steps, seed=5,
-                                           block_rows=64, interpret=True))
+                                           block=128, interpret=True))
     np.testing.assert_array_equal(ker, ref)

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from montecarlo_tpu.utils import Timer, throughput_path_steps
-from montecarlo_tpu.engine import simulate
-from montecarlo_tpu.processes import GBM
+from montecarlo.utils import Timer, throughput_path_steps
+from montecarlo.engine import simulate
+from montecarlo.processes import GBM
 
 
 def test_timer_sections_and_summary():

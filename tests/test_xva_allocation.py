@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import (CSA, netting_set_profile,
+from montecarlo.engine.exposure import (CSA, netting_set_profile,
                                             xva_trade_allocations)
-from montecarlo_tpu.processes import Vasicek
+from montecarlo.processes import Vasicek
 
 R0, KAPPA, THETA, SIG = 0.03, 0.6, 0.04, 0.012
 T, N_STEPS, N = 2.0, 32, 2048
@@ -21,7 +21,7 @@ def _model():
 
 
 def _book(model):
-    from montecarlo_tpu.engine.exposure import swap_value_fn
+    from montecarlo.engine.exposure import swap_value_fn
 
     pay = np.arange(1, 5) * 0.5
     v1 = swap_value_fn(model, 0.035, pay, 0.5)

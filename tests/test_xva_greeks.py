@@ -9,9 +9,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from montecarlo_tpu.engine.exposure import (CSA, netting_set_profile,
+from montecarlo.engine.exposure import (CSA, netting_set_profile,
                                             swap_value_fn, xva_greeks)
-from montecarlo_tpu.processes import GBM, Vasicek
+from montecarlo.processes import GBM, Vasicek
 
 S0, RF, SIGMA, TMAT = 100.0, 0.03, 0.25, 1.0
 STEPS, PATHS, SEED = 16, 1 << 14, 11
@@ -160,7 +160,7 @@ def test_csa_collateralized_greeks_finite_and_fd_consistent():
 def test_cli_xva_greeks(capsys):
     import json
 
-    from montecarlo_tpu import cli
+    from montecarlo import cli
 
     rc = cli.main(["xva", "--portfolio", "--no-csa", "--paths", "2048",
                    "--steps", "32", "--greeks"])
